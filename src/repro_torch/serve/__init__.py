@@ -1,0 +1,7 @@
+from .batching import PagedKVCache, Request, RequestQueue, Slot
+from .engine import ServeConfig, sample_tokens
+from .server import BatchConfig, BatchServer, ServeReport
+
+__all__ = ["BatchConfig", "BatchServer", "PagedKVCache", "Request",
+           "RequestQueue", "ServeConfig", "ServeReport", "Slot",
+           "sample_tokens"]
