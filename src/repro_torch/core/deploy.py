@@ -180,13 +180,14 @@ def deploy_weight(w: torch.Tensor, cim: CIMConfig, bk: int = 128,
 
 def deployed_matmul(x: torch.Tensor, dw: DeployedWeight, layer: int = 0,
                     a_bits: int = 0) -> torch.Tensor:
-    """Serving-path matmul: eq.5 activation quant + the BSR kernel.
+    """Serving-path matmul: eq.5 activation quant (the fake-quant kernel) +
+    the BSR kernel.
 
     With ``a_bits`` the activations are quantized in float32 and ``x`` is
     rebound to them, so the result is float32 even for a bf16 model (the
     reference does the same, and the residual stream widens with it)."""
     if a_bits:
-        x = Q.quantize_activation(x.float(), a_bits, signed=True)
+        x = ops.fake_quant(x.float(), a_bits, signed=True)
     lead = x.shape[:-1]
     y = ops.bsr_matmul(x.reshape(-1, dw.d_in).contiguous(), dw.packed[layer])
     return y.reshape(*lead, dw.d_out).to(x.dtype)
@@ -197,7 +198,7 @@ def stacked_matmul(x: torch.Tensor, sw: StackedWeight, layer,
     """Serving-path matmul against layer ``layer`` of a uniform envelope;
     bit-identical to ``deployed_matmul`` on that layer's own packing."""
     if a_bits:
-        x = Q.quantize_activation(x.float(), a_bits, signed=True)
+        x = ops.fake_quant(x.float(), a_bits, signed=True)
     lead = x.shape[:-1]
     y = ops.bsr_matmul_stacked(x.reshape(-1, sw.d_in).contiguous(),
                                sw.blocks, sw.scales, sw.row_idx, sw.nnz,

@@ -1,5 +1,5 @@
-"""Kernel-facing helpers: deployment packing and the BSR matmul entry
-points over packed dicts."""
+"""Kernel-facing helpers: deployment packing, the BSR matmul entry points
+over packed dicts, and the fake-quant entry point."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from ..core.mapping import pack_bsr
-from . import cim_bsr_matmul
+from . import cim_bsr_matmul, fake_quant as _fq
 
 
 def pack_for_kernel(w_q: torch.Tensor, bits: int, bk: int = 128,
@@ -44,3 +44,13 @@ def bsr_matmul_stacked(x: torch.Tensor, blocks: torch.Tensor,
     may be a (1,) int32 device tensor, read by the kernel on the card."""
     return cim_bsr_matmul.bsr_matmul_stacked(x, blocks, scales, row_idx, nnz,
                                              layer)
+
+
+def fake_quant(x: torch.Tensor, bits: int, signed: bool = False
+               ) -> torch.Tensor:
+    """eq. 5 / eq. 8 fake quant on the kernel, ``x.dtype`` out; ``bits >=
+    32`` leaves ``x`` as it is, as ``core.quant`` does."""
+    if bits >= 32:
+        return x
+    return _fq.fake_quant(x, bits, signed)
+

@@ -97,6 +97,14 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
     @property
+    def d_inner(self) -> int:  # ssm inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.ssm_heads or max(1, self.d_inner // 64)
+
+    @property
     def cim(self) -> CIMConfig:
         return CIMConfig(
             quant=QuantConfig(w_bits=self.w_bits, a_bits=self.a_bits,

@@ -3,8 +3,10 @@
 Every weight matmul goes through :func:`cim_matmul`, which dispatches on
 the leaf type: a :class:`~repro_torch.core.deploy.DeployedWeight` runs the
 block-sparse kernel, a :class:`~repro_torch.core.deploy.StackedLayerView`
-runs its layer-indexed form, a raw tensor is a dense product. Attention,
-norms and RoPE stay plain torch, as the reference leaves them to XLA.
+runs its layer-indexed form, a raw tensor is a dense product (in QAT mode
+between the fake-quantized activations and weight, eqs. 5-8, on the
+fake-quant kernel). Attention, norms and RoPE stay plain torch, as the
+reference leaves them to XLA.
 Layouts follow the reference: (B, S, H, dh) activations and caches.
 """
 from __future__ import annotations
@@ -16,21 +18,44 @@ import torch
 import torch.nn.functional as F
 
 from ..core import deploy
+from ..core import quant as Q
 from ..core.cim_layer import CIMConfig
+from ..kernels import ops
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
+def maybe_quant_a(x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
+    """eq. 5 on the fake-quant kernel in QAT mode (f32 math, ``x.dtype``
+    out), else ``x``."""
+    if cim.mode == "qat" and cim.quant.enabled:
+        return ops.fake_quant(x, cim.quant.a_bits, cim.quant.a_signed)
+    return x
+
+
+def maybe_quant_w(w: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
+    """eqs. 6 and 8 in QAT mode: tanh-normalize in f32, then eq. 8 on the
+    fake-quant kernel, ``w.dtype`` out. Re-quantized on every call, as the
+    reference does."""
+    if cim.mode == "qat" and cim.quant.enabled:
+        wq = Q.tanh_normalize(w.float(), cim.quant.group_size)
+        return ops.fake_quant(wq, cim.quant.w_bits, signed=True).to(w.dtype)
+    return w
+
+
 def cim_matmul(x: torch.Tensor, w, cim: CIMConfig) -> torch.Tensor:
     """x @ w, dispatched on the type of ``w`` (see the module docstring).
-    Serving only: the QAT fake-quant path of a raw weight is not ported."""
+    A raw weight in QAT mode multiplies the fake-quantized activations by
+    the fake-quantized weight, in their promoted type as ``jnp`` does."""
     if isinstance(w, deploy.DeployedWeight):
         return deploy.deployed_matmul(x, w, a_bits=cim.quant.a_bits)
     if isinstance(w, deploy.StackedLayerView):
         return deploy.stacked_matmul(x, w.sw, w.layer,
                                      a_bits=cim.quant.a_bits)
     if cim.mode == "qat":
-        raise NotImplementedError("QAT matmuls are not ported yet")
+        xq, wq = maybe_quant_a(x, cim), maybe_quant_w(w, cim)
+        dt = torch.promote_types(xq.dtype, wq.dtype)
+        return xq.to(dt) @ wq.to(dt)
     return x @ w.to(x.dtype)
 
 

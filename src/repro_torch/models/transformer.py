@@ -1,8 +1,14 @@
-"""Decoder-only LM, dense family: parameters and the per-layer block.
+"""Decoder-only LM, dense and ssm (mamba2) families: parameters, the
+full-sequence forward, and the static-batch serving entry points
+(``prefill``, ``init_cache``, ``pad_cache``, ``decode_step``).
 
 Parameters keep the reference's pytree layout as a plain dict: ``embed``,
 ``final_ln``, ``head`` (absent with tied embeddings) and ``layers``, whose
-leaves are stacked along a leading layer axis.
+leaves are stacked along a leading layer axis. The layer loop runs on the
+host, where the reference scans. A decode cache is a dict of stacked
+tensors (dense: ``k``/``v`` (L,B,S,KV,dh); ssm: ``conv`` (L,B,W-1,C) and
+``ssm`` (L,B,H,P,N)) plus ``pos``, a Python int; ``decode_step`` updates
+its tensors in place, where the reference donates the cache to its jit.
 """
 from __future__ import annotations
 
@@ -13,7 +19,10 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from . import layers as L
+from . import ssm as SSM
 from .config import ModelConfig
+
+FAMILIES = ("dense", "ssm")  # the families ported so far
 
 
 def _attn_layer_init(g: torch.Generator, cfg: ModelConfig, dtype,
@@ -51,13 +60,11 @@ def _attn_layer_init(g: torch.Generator, cfg: ModelConfig, dtype,
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> dict:
-    """Random dense-family parameters drawn from ``generator`` (which must
-    live on ``device``). The numbers differ from the reference's
-    ``jax.random`` stream; tests carry the reference's own parameters
-    across with :mod:`repro_torch.convert`."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+    """Random parameters drawn from ``generator`` (which must live on
+    ``device``). The numbers differ from the reference's ``jax.random``
+    stream; tests carry the reference's own parameters across with
+    :mod:`repro_torch.convert`."""
+    _check_family(cfg)
     dev = resolve_device(device)
     dtype = cfg.param_dtype
     d = cfg.d_model
@@ -69,8 +76,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["head"] = torch.randn((d, cfg.vocab_eff), generator=generator,
                                      dtype=dtype, device=dev) * 0.02
-    per_layer = [_attn_layer_init(generator, cfg, dtype, dev)
-                 for _ in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        def layer_init():
+            return {"ln": torch.zeros((d,), dtype=torch.float32, device=dev),
+                    **SSM.mamba_init(generator, cfg, dtype, dev)}
+    else:
+        def layer_init():
+            return _attn_layer_init(generator, cfg, dtype, dev)
+    per_layer = [layer_init() for _ in range(cfg.n_layers)]
     params["layers"] = {k: torch.stack([p[k] for p in per_layer])
                         for k in per_layer[0]}
     return params
@@ -95,9 +108,14 @@ def _with_theta(cfg: ModelConfig, theta: float) -> ModelConfig:
     return dataclasses.replace(cfg, rope_theta=theta)
 
 
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet ({FAMILIES} are)")
+
+
 def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    _check_family(cfg)
     return L.embed(params["embed"], batch["tokens"], cfg.param_dtype)
 
 
@@ -111,3 +129,122 @@ def _layer_kind_arrays(cfg: ModelConfig) -> Tuple[List[int], List[float]]:
     else:
         thetas = [cfg.rope_theta] * cfg.n_layers
     return windows, thetas
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _head(params: dict) -> torch.Tensor:
+    return params["head"] if "head" in params else params["embed"].T
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward and the serving entry points
+# ---------------------------------------------------------------------------
+
+
+def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
+                   collect_cache: bool = False):
+    """Returns (hidden (B,S,D), aux loss (0 for these families),
+    cache-or-None)."""
+    x = _embed_inputs(params, batch, cfg)
+    parts = []
+    if cfg.family == "dense":
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        windows, thetas = _layer_kind_arrays(cfg)
+        for i in range(cfg.n_layers):
+            x, kv = _attn_mlp_body(_layer(params, i), x, cfg, windows[i],
+                                   thetas[i], positions)
+            parts.append(kv)
+        names = ("k", "v")
+    else:  # ssm
+        for i in range(cfg.n_layers):
+            p = _layer(params, i)
+            y, tails = SSM.mamba_block(p, L.rmsnorm(x, p["ln"]), cfg)
+            x = x + y
+            parts.append(tails)
+        names = ("conv", "ssm")
+    cache = None
+    if collect_cache:
+        cache = {name: torch.stack([t[j] for t in parts])
+                 for j, name in enumerate(names)}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rmsnorm(x, params["final_ln"]), aux, cache
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig):
+    raise NotImplementedError("training (with a straight-through backward "
+                              "for fake_quant) is not ported yet")
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig):
+    """Returns (last-position logits (B,V), cache dict with ``pos``)."""
+    hidden, _, cache = forward_hidden(params, batch, cfg, collect_cache=True)
+    logits = L.logits_out(_head(params), hidden[:, -1:, :],
+                          cfg.cim)[:, 0, :cfg.vocab]
+    cache["pos"] = int(batch["tokens"].shape[1])
+    return logits, cache
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
+               device: DeviceLike = None) -> dict:
+    """Empty decode cache."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    z = lambda *shape: torch.zeros(shape, dtype=dtype or cfg.param_dtype,
+                                   device=dev)
+    if cfg.family == "dense":
+        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads_eff,
+                 cfg.dh)
+        return {"k": z(*shape), "v": z(*shape), "pos": 0}
+    di, n, n_h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    return {"conv": z(cfg.n_layers, batch_size, cfg.conv_width - 1,
+                      di + 2 * n),
+            "ssm": z(cfg.n_layers, batch_size, n_h, di // n_h, n),
+            "pos": 0}
+
+
+def pad_cache(cache: dict, max_len: int) -> dict:
+    """Grow a prefill cache's seq axis to ``max_len`` for decoding."""
+    out = dict(cache)
+    for key in ("k", "v"):
+        if key in cache and max_len > cache[key].shape[2]:
+            pad = [0, 0] * (cache[key].dim() - 3) + [
+                0, max_len - cache[key].shape[2]]
+            out[key] = torch.nn.functional.pad(cache[key], pad)
+    return out
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                cfg: ModelConfig):
+    """One decode step. tokens: (B, 1). Returns (logits (B,V), cache): the
+    cache's tensors are updated in place and ``pos`` advanced."""
+    x = L.embed(params["embed"], tokens, cfg.param_dtype)
+    pos = cache["pos"]
+    if cfg.family == "dense":
+        windows, thetas = _layer_kind_arrays(cfg)
+        pos_b = torch.full((x.shape[0],), pos, dtype=torch.long,
+                           device=x.device)
+        for i in range(cfg.n_layers):
+            p, cfg_l = _layer(params, i), _with_theta(cfg, thetas[i])
+            attn, k, v = L.decode_attention_multi(
+                p, L.rmsnorm(x, p["ln1"]), cache["k"][i], cache["v"][i],
+                pos_b, cfg_l, window=windows[i])
+            cache["k"][i, :, pos] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][i, :, pos] = v[:, 0].to(cache["v"].dtype)
+            x = x + attn
+            x = x + L.gated_mlp(p, L.rmsnorm(x, p["ln2"]), cfg.cim)
+    else:
+        _check_family(cfg)
+        for i in range(cfg.n_layers):
+            p = _layer(params, i)
+            y, conv, h = SSM.mamba_decode_step(
+                p, L.rmsnorm(x, p["ln"]), cache["conv"][i], cache["ssm"][i],
+                cfg)
+            cache["conv"][i].copy_(conv)
+            cache["ssm"][i].copy_(h)
+            x = x + y
+    cache["pos"] = pos + 1
+    x = L.rmsnorm(x, params["final_ln"])
+    return L.logits_out(_head(params), x, cfg.cim)[:, 0, :cfg.vocab], cache
