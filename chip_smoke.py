@@ -16,6 +16,9 @@ needed. Phases (any failure exits non-zero):
               unsigned, f32 and bf16, ragged sizes, NaN, +-inf and exact
               half-levels); ssd_intra_chunk at the full-width mamba2-780m
               shape (f32 at 1e-4, bf16 in with f32 out at 2e-2);
+              quant_matmul at test_kernels.py's, kernel_bench's and
+              full-width yi-6b's shapes within QM_TOL of max |plain|, with x
+              a row and column slice of a NaN-poisoned buffer in two cases;
   3. serve yi-6b - yi-6b at full width in bf16, depth cut to 4 layers,
               random weights from a seed, compressed (uniform 128x128 tile,
               60% tile sparsity) and served by BatchServer on the scan and
@@ -35,9 +38,21 @@ needed. Phases (any failure exits non-zero):
               and the same weights in f32 (dense mode) with prefill and
               decode logits within MAMBA_F32_TOL and greedy tokens by the
               margin rule;
-  5. profile - torch.profiler over a short scan-engine run and a short
+  5. baseline - the dense int8 baseline macro (quant_matmul) through its
+              entry point, repro_torch.kernels.ops.quant_matmul: one
+              full-width yi-6b gated MLP quantized per output channel, at
+              decode and prefill rows, and kernel_bench's shape;
+  6. cli    - the serving CLI, repro_torch.launch.serve.main, in-process:
+              full-width, full-depth yi-6b packed, saved as an artifact and
+              served on the loop runtime; booted from the artifact (no
+              packing; the booted packing equal to the saved one) and served
+              on the scan runtime with the same tokens; the legacy Engine
+              over the stacked and the per-layer packing, equal tokens;
+              full-width, full-depth mamba2-780m (QAT) through the Engine
+              fallback; launch counts for every run;
+  7. profile - torch.profiler over a short scan-engine run and a short
               mamba2 generate: the device's busy share and its top kernels;
-  6. times  - kernel, bound, plain-version and library times per shape.
+  8. times  - kernel, bound, plain-version and library times per shape.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -58,10 +73,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# card peaks used for bounds: H100 SXM HBM3 rate and the f32 CUDA-core rate
-# the kernel's FFMA loop runs at (it uses no tensor cores)
+# card peaks used for bounds (H100 SXM, dense): the HBM3 rate, the f32
+# CUDA-core rate, and the bf16 tensor-core rate, which is exact for a
+# product of bf16 x with int8 levels (|level| <= 127 is exact in bf16;
+# bf16 x bf16 products summed in f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 
 N_LAYERS = 4
 N_SLOTS = 4
@@ -85,6 +103,35 @@ LAYER_ULPS = 2
 DRIFT_LIMITS = (2e-3, 1.5e-2, 4e-2)
 MAMBA_F32_TOL = 1e-3
 
+# quant_matmul against its plain version: max |kernel - plain| within this
+# share of max |plain| (both widen x to f32 exactly and multiply int8
+# levels exactly; only the order of the f32 sums differs)
+QM_TOL = 1e-4
+# (M, K, N, x dtype): tests/test_kernels.py's four, benchmarks/
+# kernel_bench.py's, and full-width yi-6b's w_gate / w_down at decode and
+# prefill rows
+QM_SHAPES = [(128, 256, 256, "float32"), (100, 200, 300, "float32"),
+             (256, 128, 512, "bfloat16"), (64, 384, 128, "float32"),
+             (256, 1024, 1024, "float32"),
+             (N_SLOTS, 4096, 11008, "bfloat16"),
+             (PROMPT_ROWS, 4096, 11008, "bfloat16"),
+             (N_SLOTS, 11008, 4096, "bfloat16"),
+             (PROMPT_ROWS, 11008, 4096, "bfloat16")]
+QM_POISONED = {(100, 200, 300), (N_SLOTS, 4096, 11008)}
+
+# the cli phase's yi-6b runs (full width and depth): packing flags, then
+# the batch trace and the legacy batch
+CLI_YI = ["--arch", "yi-6b", "--dtype", "bfloat16", "--compressed",
+          "--tile", "128x128", "--target-sparsity", "0.6"]
+CLI_BATCH = ["--requests", "8", "--prompt-len", "128", "--new-tokens", "32",
+             "--slots", "4", "--block-size", "16", "--kv-blocks", "256"]
+CLI_LEGACY = ["--engine", "legacy", "--batch", "4", "--prompt-len", "128",
+              "--new-tokens", "16"]
+# the mamba2 run serves MARS-QAT: the reference's CLI has no flag for a
+# config's cim_mode, so the cli phase sets it in code (see cli)
+CLI_MAMBA = ["--arch", "mamba2-780m", "--dtype", "bfloat16", "--batch", "4",
+             "--prompt-len", "1024", "--new-tokens", "8"]
+
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -95,11 +142,41 @@ def reset_launches(kern) -> None:
         mod.reset_launches()
 
 
+def launch_counts(kern) -> dict:
+    K, FQ, SI, QM = kern
+    return dict(K.LAUNCHES_BY_ENTRY, fake_quant=FQ.LAUNCHES,
+                ssd_intra_chunk=SI.LAUNCHES, quant_matmul=QM.LAUNCHES)
+
+
+def mamba_launches(cfg, prefills, forwards) -> dict:
+    """The launches of a QAT mamba2 Engine run: fake_quant on the
+    activations and the weight of in_proj and out_proj in every layer and
+    of the head, every forward; ssd_intra_chunk once per layer in every
+    prefill."""
+    return {"bsr_matmul": 0, "bsr_matmul_stacked": 0,
+            "fake_quant": 2 * (2 * cfg.n_layers + 1) * forwards,
+            "ssd_intra_chunk": cfg.n_layers * prefills, "quant_matmul": 0}
+
+
+def compressed_launches(cfg, engine, forwards) -> dict:
+    """The launches of ``forwards`` forwards of a compressed dense model:
+    7 projections per layer and the head, each on the block-sparse kernel
+    (the scan runtime's layers on the stacked entry, the head and the loop
+    runtime on the single-layer one) after eq. 5 on fake_quant."""
+    passes = 7 * cfg.n_layers + 1
+    want = ({"bsr_matmul_stacked": 7 * cfg.n_layers * forwards,
+             "bsr_matmul": forwards} if engine == "scan"
+            else {"bsr_matmul_stacked": 0, "bsr_matmul": passes * forwards})
+    want.update(fake_quant=passes * forwards, ssd_intra_chunk=0,
+                quant_matmul=0)
+    return want
+
+
 @contextlib.contextmanager
 def plain_kernels(kern):
     """Every kernel wrapper swapped for its plain version (on the card),
     every other op unchanged."""
-    K, FQ, SI = kern
+    K, FQ, SI, _ = kern
     saved = K._run, FQ.fake_quant, SI.ssd_intra_chunk
     K._run = lambda entry, x, *ops: K.bsr_matmul_stacked_plain(x, *ops)
     FQ.fake_quant = FQ.fake_quant_plain
@@ -262,6 +339,54 @@ def check_ssd_intra(torch, SI, cfg):
     return max(err.values())
 
 
+def qm_inputs(torch, m, k, n, dtype, gen, poison=False):
+    """x (M, K) normal in ``dtype``, w (K, N) int8 levels in [-127, 127],
+    scale (N,) in [0.01, 0.11), as test_kernels.py draws them. With
+    ``poison`` x is the top-left (M, K) corner of a buffer whose other rows
+    and columns are NaN."""
+    x = torch.randn((m, k), generator=gen, device=DEV)
+    if poison:
+        buf = torch.full((m + 7, k + 5), float("nan"), device=DEV)
+        buf[:m, :k] = x
+        x = buf.to(getattr(torch, dtype))[:m, :k]
+    else:
+        x = x.to(getattr(torch, dtype))
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=DEV,
+                      dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device=DEV) * 0.1 + 0.01
+    return x, w, scale
+
+
+def check_quant_matmul(torch, QM):
+    """Phase 2: quant_matmul against its plain version at QM_SHAPES, max
+    |kernel - plain| within QM_TOL of max |plain|; in the QM_POISONED
+    cases x is a slice of a NaN-poisoned buffer (a read past the ragged
+    row or column edge would put NaN into y)."""
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    worst_abs = worst_rel = 0.0
+    n = 0
+    for m, k, nn, dt in QM_SHAPES:
+        for poison in (False, True) if (m, k, nn) in QM_POISONED else (False,):
+            x, w, scale = qm_inputs(torch, m, k, nn, dt, gen, poison)
+            got = QM.quant_matmul(x, w, scale)
+            torch.cuda.synchronize()
+            want = QM.quant_matmul_plain(x, w, scale)
+            assert got.shape == (m, nn) and got.dtype == torch.float32
+            assert torch.isfinite(got).all(), (m, k, nn, dt, poison)
+            d = float((got - want).abs().max())
+            scale_max = float(want.abs().max())
+            assert d <= QM_TOL * scale_max, (m, k, nn, dt, poison, d,
+                                             scale_max)
+            worst_abs = max(worst_abs, d)
+            worst_rel = max(worst_rel, d / scale_max)
+            n += 1
+    log(f"[kernel] quant_matmul: {n} comparisons within {QM_TOL} x max "
+        f"|plain| ({len(QM_POISONED)} with x sliced from a NaN-poisoned "
+        f"buffer); max |kernel - plain| {worst_abs:.3e}, at most "
+        f"{worst_rel:.3e} of max |plain|")
+    return worst_abs
+
+
 def make_trace(Request, vocab, seed=0):
     """8 requests, prompts of 32-128 tokens, 16 new tokens each; r1 and r5
     share their first 64 tokens (the prefix-cache suffix pass runs)."""
@@ -277,7 +402,7 @@ def serve(torch, kern, cfg, sp):
     """Phase 3: the scan and loop runtimes on the same trace. Every
     projection runs eq. 5 on its activations (fake_quant) and then the
     block-sparse kernel; no SSD block runs."""
-    K, FQ, SI = kern
+    K = kern[0]
     from repro_torch.serve import BatchConfig, BatchServer, Request
     bcfg = BatchConfig(n_slots=N_SLOTS, block_size=16, n_blocks=96)
     passes = 7 * cfg.n_layers + 1  # projections per layer, plus the head
@@ -289,15 +414,10 @@ def serve(torch, kern, cfg, sp):
         reset_launches(kern)
         rep = srv.run(make_trace(Request, cfg.vocab))
         torch.cuda.synchronize()
-        counts[engine] = dict(K.LAUNCHES_BY_ENTRY, fake_quant=FQ.LAUNCHES,
-                              ssd_intra_chunk=SI.LAUNCHES)
+        counts[engine] = launch_counts(kern)
         reports[engine] = rep
         forwards = rep.n_requests + rep.n_decode_steps  # prefills + steps
-        want = ({"bsr_matmul_stacked": 7 * cfg.n_layers * forwards,
-                 "bsr_matmul": forwards} if engine == "scan"
-                else {"bsr_matmul_stacked": 0,
-                      "bsr_matmul": passes * forwards})
-        want.update(fake_quant=passes * forwards, ssd_intra_chunk=0)
+        want = compressed_launches(cfg, engine, forwards)
         assert K.LAUNCHES == passes * forwards, (engine, K.LAUNCHES)
         assert counts[engine] == want, (engine, counts[engine], want)
         j = rep.to_json()
@@ -393,7 +513,7 @@ def serve_mamba(torch, kern, cfg, params):
     from repro_torch.models import registry
     from repro_torch.models import ssm as SSM
     from repro_torch.serve import Engine, ServeConfig
-    K, FQ, SI = kern
+    FQ = kern[1]
     fns = registry.model_fns(cfg)
     toks = torch.randint(0, cfg.vocab, (MAMBA_BATCH, MAMBA_PROMPT),
                          generator=torch.Generator(device=DEV).manual_seed(1),
@@ -421,13 +541,10 @@ def serve_mamba(torch, kern, cfg, params):
     out, rec = generate(cfg, params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"fake_quant": FQ.LAUNCHES, "ssd_intra_chunk": SI.LAUNCHES,
-              "bsr_matmul": K.LAUNCHES}
+    counts = launch_counts(kern)
     forwards = len(rec["prefill"]) + len(rec["decode"])
     per_forward = 2 * (2 * cfg.n_layers + 1)  # (in_proj, out_proj) x L + head
-    want = {"fake_quant": per_forward * forwards,
-            "ssd_intra_chunk": cfg.n_layers * len(rec["prefill"]),
-            "bsr_matmul": 0}
+    want = mamba_launches(cfg, 1, forwards)
     assert counts == want, (counts, want)
     assert out.shape == (MAMBA_BATCH, MAMBA_NEW)
     assert ((0 <= out) & (out < cfg.vocab)).all()
@@ -526,6 +643,220 @@ def serve_mamba(torch, kern, cfg, params):
     return counts
 
 
+def baseline(torch, kern, cfg):
+    """Phase 5: the dense int8 baseline macro through its entry point,
+    ``repro_torch.kernels.ops.quant_matmul``: a full-width yi-6b gated MLP
+    (w_gate, w_up, w_down, random bf16 weights quantized to int8 per output
+    channel) on bf16 activations at decode and prefill rows, then
+    kernel_bench's shape. Returns the launch counts and the weights."""
+    from repro_torch.kernels import ops
+    QM = kern[3]
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    d, ff = cfg.d_model, cfg.d_ff
+    mlp = {}
+    for name, k, n in (("w_gate", d, ff), ("w_up", d, ff),
+                       ("w_down", ff, d)):
+        w = torch.randn((k, n), generator=gen, device=DEV) / k ** 0.5
+        scale = w.abs().amax(0) / 127
+        mlp[name] = (torch.round(w / scale).to(torch.int8), scale)
+    xs = {m: torch.randn((m, d), generator=gen, device=DEV).to(torch.bfloat16)
+          for m in (N_SLOTS, PROMPT_ROWS)}
+    bench = qm_inputs(torch, 256, 1024, 1024, "float32", gen)
+    torch.cuda.synchronize()
+    reset_launches(kern)
+    outs = {}
+    for m, x in xs.items():
+        g = ops.quant_matmul(x, *mlp["w_gate"])
+        u = ops.quant_matmul(x, *mlp["w_up"])
+        h = (torch.nn.functional.silu(g) * u).to(torch.bfloat16)
+        outs[m] = ((x, g, "w_gate"), (x, u, "w_up"),
+                   (h, ops.quant_matmul(h, *mlp["w_down"]), "w_down"))
+    y_bench = ops.quant_matmul(*bench)
+    torch.cuda.synchronize()
+    counts = launch_counts(kern)
+    want = {e: 0 for e in counts}
+    want["quant_matmul"] = 3 * len(xs) + 1
+    assert counts == want, (counts, want)
+    for m, triple in outs.items():
+        for x, y, name in triple:
+            assert y.shape == (m, mlp[name][0].shape[1]), (m, name)
+            assert torch.isfinite(y).all(), (m, name)
+            want_y = QM.quant_matmul_plain(x, *mlp[name])
+            assert float((y - want_y).abs().max()) <= QM_TOL * float(
+                want_y.abs().max()), (m, name)
+    assert y_bench.shape == (256, 1024) and torch.isfinite(y_bench).all()
+    log(f"[baseline] yi-6b gated MLP ({d} -> {ff} -> {d}) on the dense int8 "
+        f"baseline at M = {sorted(xs)}, and kernel_bench's 256x1024x1024: "
+        f"launches {counts}")
+    return counts, mlp, bench
+
+
+def cli(torch, kern, card):
+    """Phase 6: ``repro_torch.launch.serve.main(argv)`` in-process, with
+    its artifact in a temporary directory removed afterwards. Every run is
+    driven with the launch counts at 0 and read after; ``deploy_weight`` is
+    counted (the boots must pack nothing), and compress, save, boot and
+    generate are timed on the host clock, synchronized. The mamba2-780m
+    run serves its config in QAT, set by wrapping ``registry.get_config``
+    (the CLI reads its config there), as the reference sets cim_mode only
+    in code."""
+    import shutil
+    import tempfile
+    from repro_torch.core import deploy as D
+    from repro_torch.launch import serve as CLI
+    from repro_torch.models import registry
+    from repro_torch.serve import deployed as DP
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.server import BatchServer
+    K = kern[0]
+    rec = {"deploy_weight": 0, "reports": [], "secs": {}}
+    orig = {"deploy_weight": (D, D.deploy_weight),
+            "compress": (DP, DP.compress),
+            "save_artifact": (DP, DP.save_artifact),
+            "load_artifact_tiers": (DP, DP.load_artifact_tiers),
+            "run": (BatchServer, BatchServer.run),
+            "generate": (Engine, Engine.generate),
+            "get_config": (registry, registry.get_config)}
+
+    def timed(name, fn, keep=None):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec["secs"][name] = time.perf_counter() - t0
+            if keep:
+                rec[keep] = out
+            return out
+        return wrapped
+
+    def deploy_weight(*a, **k):
+        rec["deploy_weight"] += 1
+        return orig["deploy_weight"][1](*a, **k)
+
+    def run(self, requests):
+        rep = orig["run"][1](self, requests)
+        rec["reports"].append(rep)
+        return rep
+
+    D.deploy_weight = deploy_weight
+    DP.compress = timed("pack", orig["compress"][1], keep="packed")
+    DP.save_artifact = timed("save", orig["save_artifact"][1])
+    DP.load_artifact_tiers = timed("boot", orig["load_artifact_tiers"][1],
+                                   keep="booted")
+    BatchServer.run = run
+    Engine.generate = timed("generate", orig["generate"][1])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    art = os.path.join(tmp, "yi-6b")
+    counts = {}
+
+    def drive(label, argv):
+        rec["deploy_weight"] = 0
+        rec["reports"].clear()
+        rec["secs"].clear()
+        torch.cuda.synchronize()
+        reset_launches(kern)
+        log(f"[cli] {label}: main({' '.join(argv)})")
+        out = CLI.main(argv)
+        torch.cuda.synchronize()
+        counts[f"cli {label}"] = launch_counts(kern)
+        return out
+
+    try:
+        cfg = registry.get_config("yi-6b", dtype="bfloat16")
+        yi = CLI_YI + ["--artifact", art]
+        batch = {}
+        for runtime in ("loop", "scan"):  # pack + save, then boot
+            rep = drive(f"yi-6b batch {runtime}",
+                        yi + CLI_BATCH + ["--runtime", runtime])
+            forwards = sum(r.n_requests + r.n_decode_steps
+                           for r in rec["reports"])
+            want = compressed_launches(cfg, runtime, forwards)
+            got = counts[f"cli yi-6b batch {runtime}"]
+            assert got == want, (runtime, got, want)
+            packs = 7 * cfg.n_layers + 1 if runtime == "loop" else 0
+            assert rec["deploy_weight"] == packs, (runtime,
+                                                   rec["deploy_weight"])
+            j = rep.to_json()
+            for rid, toks in rep.outputs.items():
+                assert ((0 <= toks) & (toks < cfg.vocab)).all(), rid
+            batch[runtime] = rep
+            if runtime == "loop":
+                size = sum(os.path.getsize(os.path.join(r, f))
+                           for r, _, fs in os.walk(art) for f in fs)
+                what = (f"pack_s {rec['secs']['pack']:.2f} save_s "
+                        f"{rec['secs']['save']:.2f} artifact_bytes {size}")
+            else:
+                what = f"boot_s {rec['secs']['boot']:.2f} deploy_weight 0"
+            log(f"[cli] yi-6b batch {runtime}: {what}; tokens_per_s "
+                f"{rep.tokens_per_s:.2f} ttft_p50_s {j['ttft']['p50']} "
+                f"decode_step_p50_s {j['tpot']['p50']} requests "
+                f"{rep.n_requests} tokens {rep.total_tokens}; launches "
+                f"{got} over {forwards} forwards (warm-up and measured "
+                f"runs) ({card})")
+        saved, booted = rec.pop("packed"), rec.pop("booted")[0]
+        pairs = list(zip(saved.deployed().values(),
+                         booted.deployed().values()))
+        assert len(pairs) == 7 * cfg.n_layers + 1
+        for a, b in pairs:
+            for pa, pb in zip(a.packed, b.packed):
+                for k in ("blocks", "scales", "row_idx", "nnz"):
+                    assert pa[k].dtype == pb[k].dtype and torch.equal(
+                        pa[k], pb[k]), k
+        for a, b in ((saved.embed, booted.embed),
+                     (saved.final_ln, booted.final_ln)):
+            assert torch.equal(a, b)
+        for la, lb in zip(saved.layers, booted.layers):
+            assert torch.equal(la["ln1"], lb["ln1"])
+            assert torch.equal(la["ln2"], lb["ln2"])
+        del saved, booted, pairs
+        for rid, toks in batch["loop"].outputs.items():
+            assert (toks == batch["scan"].outputs[rid]).all(), rid
+        log(f"[cli] booted packing equal to the saved one on the card "
+            f"({7 * cfg.n_layers + 1} projections: int8 blocks, row_idx, "
+            f"nnz, scales; embed and norms); scan tokens equal loop tokens "
+            f"on all {batch['loop'].n_requests} requests")
+        legacy = {}
+        for runtime in ("scan", "loop"):
+            out = drive(f"yi-6b legacy {runtime}",
+                        yi + CLI_LEGACY + ["--runtime", runtime])
+            new = int(CLI_LEGACY[CLI_LEGACY.index("--new-tokens") + 1])
+            want = compressed_launches(cfg, runtime, new + 1)
+            got = counts[f"cli yi-6b legacy {runtime}"]
+            assert got == want, (runtime, got, want)
+            assert rec["deploy_weight"] == 0
+            assert out.shape == (4, new) and ((0 <= out) & (out < cfg.vocab)
+                                              ).all()
+            legacy[runtime] = out
+            log(f"[cli] yi-6b legacy {runtime}: boot_s "
+                f"{rec['secs']['boot']:.2f} generate_s "
+                f"{rec['secs']['generate']:.3f} for {out.shape}; launches "
+                f"{got} over {new + 1} forwards ({card})")
+        assert (legacy["scan"] == legacy["loop"]).all()
+        log("[cli] legacy Engine tokens equal over the stacked and the "
+            "per-layer packing")
+        # the CLI reads its config from the registry; serve it in QAT
+        registry.get_config = lambda arch, **k: orig["get_config"][1](
+            arch, **{"cim_mode": "qat", **k})
+        mcfg = registry.get_config("mamba2-780m")
+        assert mcfg.cim_mode == "qat"
+        out = drive("mamba2-780m legacy", CLI_MAMBA)
+        new = int(CLI_MAMBA[CLI_MAMBA.index("--new-tokens") + 1])
+        got = counts["cli mamba2-780m legacy"]
+        want = mamba_launches(mcfg, 1, new + 1)
+        assert got == want, (got, want)
+        assert out.shape == (4, new) and ((0 <= out) & (out < mcfg.vocab)
+                                          ).all()
+        log(f"[cli] mamba2-780m legacy: generate_s "
+            f"{rec['secs']['generate']:.3f} for {out.shape}; launches {got} "
+            f"over {new + 1} forwards ({card})")
+    finally:
+        for name, (owner, fn) in orig.items():
+            setattr(owner, name, fn)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def profile_run(torch, label, run, kernels):
     """Phase 5: where ``run`` spends the card's time, from torch.profiler
     (its own overhead slows the host, so the busy share it reports is a
@@ -598,11 +929,12 @@ def time_ms(torch, fn, flush, iters=30, warm=3):
     return statistics.median(times)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     """Least time for the work: the bytes it must move (each input read
-    once, each output written once) over the HBM rate, or its f32
-    operations at the CUDA-core peak; the larger of the two."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    once, each output written once) over the HBM rate, or its operations
+    at the card's peak for their type (f32 on the CUDA cores unless told
+    otherwise); the larger of the two."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -662,7 +994,7 @@ def times_mamba(torch, kern, cfg, params):
     ssd_intra_chunk at the serving shape, as the path calls them (bf16 in,
     f32 out)."""
     from repro_torch.core import quant as Q
-    _, FQ, SI = kern
+    _, FQ, SI, _ = kern
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(6)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -720,6 +1052,44 @@ def times_mamba(torch, kern, cfg, params):
     return rows
 
 
+def times_quant_matmul(torch, QM, cfg, mlp, bench):
+    """Phase 8: quant_matmul at the baseline path's yi-6b shapes (w_gate
+    and w_down at decode and prefill rows, bf16 x) and kernel_bench's.
+    Bound: x read once, the int8 weight, the scales, f32 y written once,
+    or 2 MKN FLOPs at the bf16 tensor-core rate for bf16 x (exact: see
+    BF16_TC_FLOPS_PER_S) and the f32 rate for f32 x; library: torch.matmul of x.float() with the f32
+    weight made ahead, then the scale (TF32 off)."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    cases = [(f"{name} {label}", torch.randn((m, w.shape[0]), generator=gen,
+                                              device=DEV).to(torch.bfloat16),
+              w, scale)
+             for name in ("w_gate", "w_down") for w, scale in [mlp[name]]
+             for label, m in (("decode", N_SLOTS), ("prefill", PROMPT_ROWS))]
+    cases.append(("kernel_bench", *bench))
+    rows = []
+    for name, x, w, scale in cases:
+        (m, k), n = x.shape, w.shape[1]
+        w_f32 = w.float()
+        rate = (BF16_TC_FLOPS_PER_S if x.dtype == torch.bfloat16
+                else F32_FLOPS_PER_S)
+        b_ms, b_by = bound_ms(m * k * x.element_size() + k * n + 4 * n
+                              + 4 * m * n, 2 * m * k * n, rate)
+        row = {"shape": f"quant_matmul {name}", "entry": "quant_matmul",
+               "M": m, "K": k, "N": n, "dtype": str(x.dtype)[6:],
+               "kernel_ms": time_ms(torch, lambda: QM.quant_matmul(
+                   x, w, scale), flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": time_ms(torch, lambda: QM.quant_matmul_plain(
+                   x, w, scale), flush),
+               "library_ms": time_ms(torch, lambda: torch.matmul(
+                   x.float(), w_f32) * scale, flush)}
+        rows.append(row)
+        log(json.dumps(row))
+        del w_f32
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -730,6 +1100,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import cim_bsr_matmul as K
     from repro_torch.kernels import fake_quant as FQ
+    from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels import ssd_intra as SI
     from repro_torch.models import registry
     from repro_torch.models.transformer import init_params
@@ -760,11 +1131,12 @@ def main() -> int:
               ("w_gate", cfg.d_model, cfg.d_ff),
               ("w_down", cfg.d_ff, cfg.d_model),
               ("head", cfg.d_model, cfg.vocab)]
-    kern = (K, FQ, SI)
+    kern = (K, FQ, SI, QM)
     mcfg = registry.get_config("mamba2-780m", cim_mode="qat")
     max_err = check_kernels(torch, K, Q, shapes)
     max_err["fake_quant"] = check_fake_quant(torch, FQ)
     max_err["ssd_intra_chunk"] = check_ssd_intra(torch, SI, mcfg)
+    max_err["quant_matmul"] = check_quant_matmul(torch, QM)
 
     log(f"[serve] yi-6b at full width ({cfg.d_model} wide, {cfg.n_heads}/"
         f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
@@ -794,21 +1166,28 @@ def main() -> int:
         v.numel() for k, v in mparams.items() if k != "layers")
     log(f"[mamba] {n_params / 1e6:.1f} M parameters")
     counts["mamba"] = serve_mamba(torch, kern, mcfg, mparams)
+    counts["baseline"], mlp, bench = baseline(torch, kern,
+                                              registry.get_config("yi-6b"))
+    counts.update(cli(torch, kern, card))
 
     profile_serve(torch, cfg, sp)
     profile_mamba(torch, mcfg, mparams)
-    rows = times(torch, K, Q, sp, sxp) + times_mamba(torch, kern, mcfg,
-                                                       mparams)
+    rows = (times(torch, K, Q, sp, sxp)
+            + times_mamba(torch, kern, mcfg, mparams)
+            + times_quant_matmul(torch, QM, cfg, mlp, bench))
     pick = {"bsr_matmul_stacked": "w_gate decode", "bsr_matmul": "head decode",
             "fake_quant": "fake_quant act prefill",
-            "ssd_intra_chunk": "ssd_intra serve"}
+            "ssd_intra_chunk": "ssd_intra serve",
+            "quant_matmul": "quant_matmul w_gate decode"}
     source = {"bsr_matmul_stacked": "bsr_matmul.cu",
               "bsr_matmul": "bsr_matmul.cu", "fake_quant": "fake_quant.cu",
-              "ssd_intra_chunk": "ssd_intra.cu"}
+              "ssd_intra_chunk": "ssd_intra.cu",
+              "quant_matmul": "quant_matmul.cu"}
     replaces = {"bsr_matmul": "src/repro/kernels/cim_bsr_matmul.py:83",
                 "bsr_matmul_stacked": "src/repro/kernels/cim_bsr_matmul.py:138",
                 "fake_quant": "src/repro/kernels/fake_quant.py:28",
-                "ssd_intra_chunk": "src/repro/kernels/ssd_intra.py:47"}
+                "ssd_intra_chunk": "src/repro/kernels/ssd_intra.py:47",
+                "quant_matmul": "src/repro/kernels/quant_matmul.py:40"}
     kernels = []
     for entry in pick:
         row = next(r for r in rows if r["shape"] == pick[entry])

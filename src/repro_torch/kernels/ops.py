@@ -1,5 +1,5 @@
 """Kernel-facing helpers: deployment packing, the BSR matmul entry points
-over packed dicts, and the fake-quant entry point."""
+over packed dicts, and the fake-quant and dense int8 matmul entry points."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from ..core.mapping import pack_bsr
-from . import cim_bsr_matmul, fake_quant as _fq
+from . import cim_bsr_matmul, fake_quant as _fq, quant_matmul as _qm
 
 
 def pack_for_kernel(w_q: torch.Tensor, bits: int, bk: int = 128,
@@ -54,3 +54,10 @@ def fake_quant(x: torch.Tensor, bits: int, signed: bool = False
         return x
     return _fq.fake_quant(x, bits, signed)
 
+
+def quant_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor
+                 ) -> torch.Tensor:
+    """Dense int8-weight matmul, the non-sparse baseline macro: ``(x @
+    w_int8) * scale`` with a per-output-channel f32 scale applied after the
+    K sum, f32 out, on the kernel."""
+    return _qm.quant_matmul(x, w_int8, scale)

@@ -221,20 +221,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     """One decode step. tokens: (B, 1). Returns (logits (B,V), cache): the
     cache's tensors are updated in place and ``pos`` advanced."""
     x = L.embed(params["embed"], tokens, cfg.param_dtype)
-    pos = cache["pos"]
     if cfg.family == "dense":
-        windows, thetas = _layer_kind_arrays(cfg)
-        pos_b = torch.full((x.shape[0],), pos, dtype=torch.long,
-                           device=x.device)
-        for i in range(cfg.n_layers):
-            p, cfg_l = _layer(params, i), _with_theta(cfg, thetas[i])
-            attn, k, v = L.decode_attention_multi(
-                p, L.rmsnorm(x, p["ln1"]), cache["k"][i], cache["v"][i],
-                pos_b, cfg_l, window=windows[i])
-            cache["k"][i, :, pos] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][i, :, pos] = v[:, 0].to(cache["v"].dtype)
-            x = x + attn
-            x = x + L.gated_mlp(p, L.rmsnorm(x, p["ln2"]), cfg.cim)
+        x = decode_layers_dense(
+            (_layer(params, i) for i in range(cfg.n_layers)), x, cache, cfg)
     else:
         _check_family(cfg)
         for i in range(cfg.n_layers):
@@ -245,6 +234,28 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             cache["conv"][i].copy_(conv)
             cache["ssm"][i].copy_(h)
             x = x + y
-    cache["pos"] = pos + 1
+    cache["pos"] += 1
     x = L.rmsnorm(x, params["final_ln"])
     return L.logits_out(_head(params), x, cfg.cim)[:, 0, :cfg.vocab], cache
+
+
+def decode_layers_dense(layers, x: torch.Tensor, cache: dict,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """The dense family's decode over per-layer param dicts (``layers``,
+    one per layer, in order): x (B, 1, D) at position ``cache["pos"]``,
+    each layer's new K/V written into the contiguous cache in place.
+    Returns the residual stream after the last layer; ``pos`` is left for
+    the caller to advance."""
+    pos = cache["pos"]
+    windows, thetas = _layer_kind_arrays(cfg)
+    pos_b = torch.full((x.shape[0],), pos, dtype=torch.long, device=x.device)
+    for i, p in enumerate(layers):
+        cfg_l = _with_theta(cfg, thetas[i])
+        attn, k, v = L.decode_attention_multi(
+            p, L.rmsnorm(x, p["ln1"]), cache["k"][i], cache["v"][i], pos_b,
+            cfg_l, window=windows[i])
+        cache["k"][i, :, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][i, :, pos] = v[:, 0].to(cache["v"].dtype)
+        x = x + attn
+        x = x + L.gated_mlp(p, L.rmsnorm(x, p["ln2"]), cfg.cim)
+    return x

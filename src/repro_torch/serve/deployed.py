@@ -7,22 +7,33 @@
   both.
 * :func:`compress` runs every 2-D CIM projection (QKV/O, MLP, head) through
   ``deploy_weight``.
+* :func:`save_artifact` / :func:`load_artifact` are the offline artifact
+  flow: quantize + prune + pack run once, the packed ServingParams lands on
+  disk through ``train.checkpoint`` in the reference's format, and a
+  serving host boots from the directory without re-packing. Artifacts the
+  reference wrote load here, and the reference loads the port's (except
+  bf16 leaves, which it cannot read back, its own included).
 * The forward functions below are the LOOP runtime: a Python loop over
   per-layer weights. They take any params object with ``embed``,
   ``final_ln``, ``head``/``head_t`` and ``layer_params()``, so the stacked
   runtime (``serve.stacked``) runs the same code over layer-indexed views.
+  :func:`model_fns` plugs them into ``serve.Engine``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..core import deploy as D
+from ..device import DeviceLike
 from ..models import layers as L
-from ..models import transformer
+from ..models import registry, transformer
 from ..models.config import ModelConfig
+from ..train import checkpoint as ckpt
 
 # projections deployed per transformer block
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -126,6 +137,159 @@ def compress(cfg: ModelConfig, params: dict,
     return sp
 
 
+# ---------------------------------------------------------------------------
+# Offline serving artifacts: pack once, boot many times
+# ---------------------------------------------------------------------------
+
+# Manifest schema version: loaders refuse artifacts NEWER than they
+# understand (artifacts saved before versioning carry none and load).
+ARTIFACT_SCHEMA = 1
+
+
+def packed_tiles(sp: ServingParams) -> List[Tuple[int, int]]:
+    """Sorted unique (bk, bn) tiles across every deployed projection; one
+    element means the packing is uniform (the stacked envelope fits)."""
+    return sorted({dw.tile for dw in sp.deployed().values()})
+
+
+def validate_artifact(path: str, extra: dict, *,
+                      arch: Optional[str] = None,
+                      family: Optional[str] = None,
+                      tile: Optional[Tuple[int, int]] = None) -> None:
+    """Check a manifest's extra against what the serving host expects and
+    raise with the artifact path and expected vs found. Each check is
+    skipped when the expectation or the manifest field is absent, so
+    artifacts written before versioning still load."""
+    schema = extra.get("schema")
+    if schema is not None and int(schema) > ARTIFACT_SCHEMA:
+        raise ValueError(
+            f"{path}: artifact manifest schema {schema} is newer than this "
+            f"host supports ({ARTIFACT_SCHEMA}) - upgrade the serving host "
+            "or re-save the artifact")
+    if arch is not None and extra.get("arch") not in (None, arch):
+        raise ValueError(
+            f"{path}: artifact arch mismatch - expected {arch!r}, found "
+            f"{extra['arch']!r}")
+    if family is not None and extra.get("family") not in (None, family):
+        raise ValueError(
+            f"{path}: artifact family mismatch - expected {family!r}, "
+            f"found {extra['family']!r}")
+    if tile is not None and extra.get("tiles"):
+        found = [tuple(t) for t in extra["tiles"]]
+        if len(found) != 1 or found[0] != tuple(tile):
+            raise ValueError(
+                f"{path}: artifact tile mismatch - expected uniform "
+                f"{tuple(tile)}, found {found} (re-pack with that tile, or "
+                "stage a re-jit instead of hot-swapping)")
+
+
+def _strip_placement(sp: ServingParams) -> ServingParams:
+    """Serialization form: no derived tied-head cache. (The port never
+    shards a packing, so there is no placement to undo.)"""
+    return ServingParams(embed=sp.embed, final_ln=sp.final_ln,
+                         layers=sp.layers, head=sp.head, head_t=None)
+
+
+def save_artifact(path: str, sp: ServingParams, cfg: ModelConfig,
+                  extra: Optional[dict] = None,
+                  draft: Optional[ServingParams] = None) -> str:
+    """Persist a (compressed or dense) ServingParams as a boot-ready
+    artifact, atomically, without the tied-head cache (the loader rebuilds
+    it). ``draft`` makes it two-tier; dense leaves the tiers share by
+    reference are stored once."""
+    meta = {"schema": ARTIFACT_SCHEMA, "arch": cfg.name,
+            "family": cfg.family, "n_layers": cfg.n_layers,
+            "tiles": [list(t) for t in packed_tiles(sp)],
+            **(extra or {})}
+    clean = _strip_placement(sp)
+    if draft is None:
+        return ckpt.save_pytree(path, clean, extra=meta)
+    meta["two_tier"] = True
+    tree = {"target": clean, "draft": _strip_placement(draft)}
+    return ckpt.save_pytree(path, tree, extra=meta)
+
+
+def _rebuild_tied_head(sp: ServingParams) -> ServingParams:
+    if sp.head is None and sp.head_t is None:
+        sp.head_t = sp.embed.T.contiguous()
+    return sp
+
+
+def load_artifact_tiers(path: str, *, arch: Optional[str] = None,
+                        tile: Optional[Tuple[int, int]] = None,
+                        device: DeviceLike = None
+                        ) -> Tuple[ServingParams, Optional[ServingParams],
+                                   dict]:
+    """Boot every tier of an artifact from one deserialization pass onto
+    ``device`` (None means cuda): (target, draft-or-None, manifest-extra).
+    Leaves the tiers share are one tensor on the device. ``arch``/``tile``
+    are checked against the manifest before any array is read."""
+    probe = load_artifact_extra(path)
+    if probe:
+        validate_artifact(path, probe, arch=arch, tile=tile)
+    tree, manifest = ckpt.load_pytree(path, device=device)
+    extra = manifest.get("extra", manifest)
+    if isinstance(tree, ServingParams):
+        return _rebuild_tied_head(tree), None, extra
+    if isinstance(tree, dict) and "target" in tree:
+        draft = tree.get("draft")
+        return (_rebuild_tied_head(tree["target"]),
+                _rebuild_tied_head(draft) if draft is not None else None,
+                extra)
+    raise TypeError(f"{path}: artifact does not contain ServingParams")
+
+
+def load_artifact(path: str, tier: str = "target", *,
+                  arch: Optional[str] = None,
+                  tile: Optional[Tuple[int, int]] = None,
+                  device: DeviceLike = None) -> Tuple[ServingParams, dict]:
+    """Boot one tier (``"target"``, or ``"draft"`` of a two-tier artifact)
+    without re-packing: (sp, manifest-extra)."""
+    target, draft, extra = load_artifact_tiers(path, arch=arch, tile=tile,
+                                               device=device)
+    if tier == "target":
+        return target, extra
+    if tier == "draft":
+        if draft is None:
+            raise ValueError(
+                f"{path}: artifact has no draft packing - re-save with "
+                "save_artifact(..., draft=...) for speculative serving")
+        return draft, extra
+    raise ValueError(f"{path}: unknown tier {tier!r}")
+
+
+def load_artifact_extra(path: str) -> dict:
+    """Only the manifest-extra of an artifact (no array is read); {} when
+    there is no artifact at ``path``."""
+    step = ckpt.latest_step(path)
+    if step is None:
+        return {}
+    with open(os.path.join(path, f"step_{step:08d}", "manifest.json")) as f:
+        manifest = json.load(f)
+    return manifest.get("extra", {}) or {}
+
+
+def update_artifact_extra(path: str, updates: dict) -> None:
+    """Merge ``updates`` into an artifact's manifest-extra, rewriting the
+    manifest atomically and leaving the arrays untouched."""
+    step = ckpt.latest_step(path)
+    if step is None:
+        raise FileNotFoundError(f"no artifact at {path}")
+    d = os.path.join(path, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    manifest.setdefault("extra", {}).update(updates)
+    tmp = os.path.join(d, ".manifest.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(tmp, os.path.join(d, "manifest.json"))
+
+
+# ---------------------------------------------------------------------------
+# Forward paths: the LOOP runtime
+# ---------------------------------------------------------------------------
+
+
 def _head(sp):
     """Output head: explicit, or the build-time transposed tied embedding."""
     if sp.head is not None:
@@ -153,6 +317,27 @@ def prefill_hidden(sp, batch: dict, cfg: ModelConfig):
         vs.append(v)
     return L.rmsnorm(x, sp.final_ln), {"k": torch.stack(ks),
                                        "v": torch.stack(vs)}
+
+
+def prefill(sp, batch: dict, cfg: ModelConfig):
+    """Engine-signature prefill: (last-position logits (B, V), contiguous
+    cache with ``pos`` the prompt length)."""
+    hidden, cache = prefill_hidden(sp, batch, cfg)
+    logits = L.logits_out(_head(sp), hidden[:, -1:, :],
+                          cfg.cim)[:, 0, : cfg.vocab]
+    cache["pos"] = int(batch["tokens"].shape[1])
+    return logits, cache
+
+
+def decode_step(sp, cache: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """Engine-signature decode over a contiguous cache with a scalar
+    ``pos``, updated in place; the same math as ``transformer.decode_step``
+    (dense branch), layer by layer over ``sp.layer_params()``."""
+    x = L.embed(sp.embed, tokens, cfg.param_dtype)
+    x = transformer.decode_layers_dense(sp.layer_params(), x, cache, cfg)
+    cache["pos"] += 1
+    x = L.rmsnorm(x, sp.final_ln)
+    return L.logits_out(_head(sp), x, cfg.cim)[:, 0, : cfg.vocab], cache
 
 
 def prefill_last(sp, tokens: torch.Tensor, true_len: int, cfg: ModelConfig):
@@ -205,3 +390,20 @@ def decode_step_paged(sp, views_k: torch.Tensor, views_v: torch.Tensor,
     for the caller to write back into the block pool."""
     logits, ks, vs = verify_step(sp, views_k, views_v, pos, tokens, cfg)
     return logits[:, 0], ks[:, :, 0], vs[:, :, 0]
+
+
+def model_fns(cfg: ModelConfig) -> registry.ModelFns:
+    """ModelFns whose prefill/decode take a :class:`ServingParams` (or a
+    ``serve.stacked.StackedParams``) in place of model params:
+    ``serve.Engine(cfg, sp, fns=model_fns(cfg))`` serves compressed (or
+    unstacked dense) weights."""
+    _check_family(cfg)
+
+    def _no_init(*a, **k):
+        raise NotImplementedError(
+            "serving params are built from model params (from_params, "
+            "compress, stacked.stack), not initialized or trained")
+
+    return registry.ModelFns(init_params=_no_init, train_loss=_no_init,
+                             prefill=prefill, decode_step=decode_step,
+                             init_cache=transformer.init_cache)

@@ -23,11 +23,12 @@ import torch
 
 from ..core import deploy as D
 from . import deployed as DP
-from .deployed import (decode_step_paged, prefill_hidden, prefill_last,
-                       verify_step)
+from .deployed import (decode_step, decode_step_paged, prefill,
+                       prefill_hidden, prefill_last, verify_step)
 
-__all__ = ["StackedParams", "stack", "prefill_hidden", "prefill_last",
-           "decode_step_paged", "verify_step"]
+__all__ = ["StackedParams", "stack", "prefill", "decode_step", "model_fns",
+           "prefill_hidden", "prefill_last", "decode_step_paged",
+           "verify_step"]
 
 
 @dataclasses.dataclass
@@ -87,3 +88,8 @@ def stack(sp: DP.ServingParams) -> StackedParams:
     return StackedParams(embed=sp.embed, final_ln=sp.final_ln, dense=dense,
                          packed=packed, layer_ids=layer_ids, head=sp.head,
                          head_t=sp.head_t)
+
+
+# ModelFns over a StackedParams (``serve.Engine(cfg, stack(sp),
+# fns=model_fns(cfg))``): the loop runtime's own, run over the layer views
+model_fns = DP.model_fns

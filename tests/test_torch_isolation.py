@@ -1,4 +1,6 @@
-"""The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``."""
+"""The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
+nor ``ml_dtypes`` (the GPU machine lacks it; the checkpoint reader carries
+bfloat16 leaves through a ``uint16`` view instead)."""
 import os
 import pkgutil
 import subprocess
@@ -15,8 +17,8 @@ def test_port_imports_neither_jax_nor_reference():
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
+        "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.dirname(PKG_DIR))
@@ -34,7 +36,8 @@ def test_no_source_file_names_jax_or_reference():
                 text = open(os.path.join(root, f)).read()
                 for needle in ("import jax", "from jax", "from repro ",
                                "from repro.", "import repro\n",
-                               "import repro."):
+                               "import repro.", "import ml_dtypes",
+                               "from ml_dtypes"):
                     if needle in text:
                         offenders.append((f, needle))
     assert not offenders, offenders
