@@ -17,8 +17,11 @@ needed. Phases (any failure exits non-zero):
               half-levels); ssd_intra_chunk at the full-width mamba2-780m
               shape (f32 at 1e-4, bf16 in with f32 out at 2e-2);
               quant_matmul at test_kernels.py's, kernel_bench's and
-              full-width yi-6b's shapes within QM_TOL of max |plain|, with x
-              a row and column slice of a NaN-poisoned buffer in two cases;
+              full-width yi-6b's shapes and at its plan's edges within
+              QM_TOL of max |plain|, each call repeated bit for bit, with x
+              a row and column slice of a NaN-poisoned buffer in two cases
+              (the masked load path; the yi-6b and kernel_bench shapes on
+              the 16-byte path, by the per-path launch counts);
   3. serve yi-6b - yi-6b at full width in bf16, depth cut to 4 layers,
               random weights from a seed, compressed (uniform 128x128 tile,
               60% tile sparsity) and served by BatchServer on the scan and
@@ -41,7 +44,8 @@ needed. Phases (any failure exits non-zero):
   5. baseline - the dense int8 baseline macro (quant_matmul) through its
               entry point, repro_torch.kernels.ops.quant_matmul: one
               full-width yi-6b gated MLP quantized per output channel, at
-              decode and prefill rows, and kernel_bench's shape;
+              decode and prefill rows, and kernel_bench's shape, every
+              launch on the kernel's 16-byte path;
   6. cli    - the serving CLI, repro_torch.launch.serve.main, in-process:
               full-width, full-depth yi-6b packed, saved as an artifact and
               served on the loop runtime; booted from the artifact (no
@@ -76,7 +80,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # card peaks used for bounds (H100 SXM, dense): the HBM3 rate, the f32
 # CUDA-core rate, and the bf16 tensor-core rate, which is exact for a
 # product of bf16 x with int8 levels (|level| <= 127 is exact in bf16;
-# bf16 x bf16 products summed in f32)
+# bf16 x bf16 products summed in f32) and for f32 x split into three bf16
+# planes, as quant_matmul's kernel multiplies it
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
@@ -108,16 +113,27 @@ MAMBA_F32_TOL = 1e-3
 # levels exactly; only the order of the f32 sums differs)
 QM_TOL = 1e-4
 # (M, K, N, x dtype): tests/test_kernels.py's four, benchmarks/
-# kernel_bench.py's, and full-width yi-6b's w_gate / w_down at decode and
-# prefill rows
+# kernel_bench.py's, full-width yi-6b's w_gate / w_down at decode and
+# prefill rows, then the kernel's plan edges: tile heights 16 / 64 / 128
+# on both sides of each edge, split-K with f32 x, K shorter than one
+# stage, N < 8
 QM_SHAPES = [(128, 256, 256, "float32"), (100, 200, 300, "float32"),
              (256, 128, 512, "bfloat16"), (64, 384, 128, "float32"),
              (256, 1024, 1024, "float32"),
              (N_SLOTS, 4096, 11008, "bfloat16"),
              (PROMPT_ROWS, 4096, 11008, "bfloat16"),
              (N_SLOTS, 11008, 4096, "bfloat16"),
-             (PROMPT_ROWS, 11008, 4096, "bfloat16")]
+             (PROMPT_ROWS, 11008, 4096, "bfloat16"),
+             (1, 4096, 4096, "bfloat16"), (16, 1024, 512, "float32"),
+             (17, 1024, 512, "bfloat16"), (64, 512, 384, "float32"),
+             (65, 512, 384, "bfloat16"), (8, 4096, 1024, "float32"),
+             (96, 40, 256, "bfloat16"), (33, 520, 5, "float32")]
 QM_POISONED = {(100, 200, 300), (N_SLOTS, 4096, 11008)}
+# the shapes whose contiguous x must take the kernel's 16-byte path (the
+# poisoned slices, row stride K + 5, take the masked one)
+QM_ALIGNED = {(256, 1024, 1024), (N_SLOTS, 4096, 11008),
+              (PROMPT_ROWS, 4096, 11008), (N_SLOTS, 11008, 4096),
+              (PROMPT_ROWS, 11008, 4096)}
 
 # the cli phase's yi-6b runs (full width and depth): packing flags, then
 # the batch trace and the legacy batch
@@ -359,17 +375,29 @@ def qm_inputs(torch, m, k, n, dtype, gen, poison=False):
 
 def check_quant_matmul(torch, QM):
     """Phase 2: quant_matmul against its plain version at QM_SHAPES, max
-    |kernel - plain| within QM_TOL of max |plain|; in the QM_POISONED
-    cases x is a slice of a NaN-poisoned buffer (a read past the ragged
-    row or column edge would put NaN into y)."""
+    |kernel - plain| within QM_TOL of max |plain|, and a second call equal
+    bit for bit (split-K sums its slices in a fixed order); in the
+    QM_POISONED cases x is a slice of a NaN-poisoned buffer (a read past
+    the ragged row or column edge would put NaN into y). The per-path
+    counts show QM_ALIGNED's shapes on the 16-byte path and the poisoned
+    slices on the masked one."""
     gen = torch.Generator(device=DEV).manual_seed(7)
     worst_abs = worst_rel = 0.0
     n = 0
     for m, k, nn, dt in QM_SHAPES:
         for poison in (False, True) if (m, k, nn) in QM_POISONED else (False,):
             x, w, scale = qm_inputs(torch, m, k, nn, dt, gen, poison)
+            before = dict(QM.LAUNCHES_BY_PATH)
             got = QM.quant_matmul(x, w, scale)
+            path = [p for p, c in QM.LAUNCHES_BY_PATH.items()
+                    if c != before[p]]
+            if poison:
+                assert path == ["masked"], (m, k, nn, dt, path)
+            elif (m, k, nn) in QM_ALIGNED:
+                assert path == ["aligned"], (m, k, nn, dt, path)
+            again = QM.quant_matmul(x, w, scale)
             torch.cuda.synchronize()
+            assert torch.equal(got, again), (m, k, nn, dt, poison)
             want = QM.quant_matmul_plain(x, w, scale)
             assert got.shape == (m, nn) and got.dtype == torch.float32
             assert torch.isfinite(got).all(), (m, k, nn, dt, poison)
@@ -382,8 +410,9 @@ def check_quant_matmul(torch, QM):
             n += 1
     log(f"[kernel] quant_matmul: {n} comparisons within {QM_TOL} x max "
         f"|plain| ({len(QM_POISONED)} with x sliced from a NaN-poisoned "
-        f"buffer); max |kernel - plain| {worst_abs:.3e}, at most "
-        f"{worst_rel:.3e} of max |plain|")
+        f"buffer, on the masked path), each repeated bit for bit; max "
+        f"|kernel - plain| {worst_abs:.3e}, at most {worst_rel:.3e} of max "
+        f"|plain|")
     return worst_abs
 
 
@@ -677,6 +706,8 @@ def baseline(torch, kern, cfg):
     want = {e: 0 for e in counts}
     want["quant_matmul"] = 3 * len(xs) + 1
     assert counts == want, (counts, want)
+    by_path = dict(QM.LAUNCHES_BY_PATH)
+    assert by_path == {"aligned": want["quant_matmul"], "masked": 0}, by_path
     for m, triple in outs.items():
         for x, y, name in triple:
             assert y.shape == (m, mlp[name][0].shape[1]), (m, name)
@@ -687,7 +718,7 @@ def baseline(torch, kern, cfg):
     assert y_bench.shape == (256, 1024) and torch.isfinite(y_bench).all()
     log(f"[baseline] yi-6b gated MLP ({d} -> {ff} -> {d}) on the dense int8 "
         f"baseline at M = {sorted(xs)}, and kernel_bench's 256x1024x1024: "
-        f"launches {counts}")
+        f"launches {counts}, by load path {by_path}")
     return counts, mlp, bench
 
 
@@ -1056,8 +1087,12 @@ def times_quant_matmul(torch, QM, cfg, mlp, bench):
     """Phase 8: quant_matmul at the baseline path's yi-6b shapes (w_gate
     and w_down at decode and prefill rows, bf16 x) and kernel_bench's.
     Bound: x read once, the int8 weight, the scales, f32 y written once,
-    or 2 MKN FLOPs at the bf16 tensor-core rate for bf16 x (exact: see
-    BF16_TC_FLOPS_PER_S) and the f32 rate for f32 x; library: torch.matmul of x.float() with the f32
+    or the products at the bf16 tensor-core rate (exact: see
+    BF16_TC_FLOPS_PER_S): 2 MKN FLOPs for bf16 x, and 3 x 2 MKN for f32 x,
+    which the kernel multiplies as three bf16 planes (x = x0 + x1 + x2,
+    exact; TF32 would round x). Counted as 2 MKN at the f32 CUDA-core rate,
+    the f32 row's bound would be work the kernel does not do, and a time
+    the kernel can beat. Library: torch.matmul of x.float() with the f32
     weight made ahead, then the scale (TF32 off)."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(9)
@@ -1071,10 +1106,10 @@ def times_quant_matmul(torch, QM, cfg, mlp, bench):
     for name, x, w, scale in cases:
         (m, k), n = x.shape, w.shape[1]
         w_f32 = w.float()
-        rate = (BF16_TC_FLOPS_PER_S if x.dtype == torch.bfloat16
-                else F32_FLOPS_PER_S)
+        planes = 1 if x.dtype == torch.bfloat16 else 3
         b_ms, b_by = bound_ms(m * k * x.element_size() + k * n + 4 * n
-                              + 4 * m * n, 2 * m * k * n, rate)
+                              + 4 * m * n, planes * 2 * m * k * n,
+                              BF16_TC_FLOPS_PER_S)
         row = {"shape": f"quant_matmul {name}", "entry": "quant_matmul",
                "M": m, "K": k, "N": n, "dtype": str(x.dtype)[6:],
                "kernel_ms": time_ms(torch, lambda: QM.quant_matmul(
