@@ -6,7 +6,11 @@ numpy inputs feed both. Tolerances are ``tests/test_kernels.py``'s: 1e-5
 for f32 inputs and 2e-2 for bf16 (the two frameworks order the f32 sums
 differently). Inside the port the stacked entry point must equal the
 single-layer one bit for bit. The CUDA kernel itself is held against the
-plain version by the ``cuda``-marked test, which runs only on a GPU.
+plain version by the ``cuda``-marked tests, which run only on a GPU. What
+the kernel's dispatch decides is pure Python and tested here: ``plan`` and
+``launch_plan`` (tile height, S slots per split, load path), and the
+invariant that keeps loop = scan bit for bit: a layer's own packing and
+the padded envelope cut every column's slots alike.
 """
 import numpy as np
 import pytest
@@ -203,3 +207,192 @@ def test_bsr_kernel_matches_plain_on_gpu():
         assert torch.equal(got, single)
         torch.testing.assert_close(
             got, TK.bsr_matmul_stacked_plain(x, *st, i), rtol=1e-5, atol=1e-5)
+
+
+# --- the launch plan (pure Python; the kernel follows it on the card) ---
+
+
+def _ranges(p, nnz, nmax):
+    """Per column, the slot ranges the kernel's splits take: split z holds
+    slots [z * S, (z + 1) * S) below min(nnz, nmax), empty runs dropped."""
+    out = []
+    for c in nnz.tolist():
+        cnt, s = min(c, nmax), p.slots
+        out.append([(z * s, min(z * s + s, cnt))
+                    for z in range(p.splits(nmax)) if z * s < cnt])
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 4, 17, 129])
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+def test_plan_cuts_layer_packing_and_envelope_alike(m, xdtype):
+    """The loop runtime's per-layer packings (their own nnz_max; one is
+    truncated) and StackedWeight.layer(i) against the scan runtime's
+    envelope: the same plan, and every column the same slot ranges up to
+    the layer's own count. Past it the envelope holds zero blocks with zero
+    scales (the truncated layer), which add exact zeros."""
+    dws, sw = _layer_stack()
+    x = torch.zeros((m, sw.d_in), dtype=TORCH[xdtype])
+    env, env_splits = TK.launch_plan(x, sw.blocks)
+    nmax_env = sw.blocks.shape[2]
+    assert env_splits == env.splits(nmax_env)
+    for i, dw in enumerate(dws):
+        for own in (dw.packed[0], sw.layer(i).packed[0]):
+            p, _ = TK.launch_plan(x, own["blocks"][None])
+            assert p == env, i
+            nmax = own["blocks"].shape[1]
+            mine = _ranges(p, own["nnz"], nmax)
+            theirs = _ranges(env, sw.nnz[i], nmax_env)
+            for j, (a, b) in enumerate(zip(mine, theirs)):
+                cnt = min(int(own["nnz"][j]), nmax)
+                cut = [(lo, min(hi, cnt)) for lo, hi in b if lo < cnt]
+                assert a == cut, (i, j)
+                read = min(int(sw.nnz[i, j]), nmax_env)  # the envelope's
+                assert not sw.scales[i, j, cnt:read].any(), (i, j)
+                assert not sw.blocks[i, j, cnt:read].any(), (i, j)
+
+
+@pytest.mark.parametrize("nmax,n_layers", [(1, 1), (5, 1), (5, 7), (40, 3)])
+def test_plan_reads_no_slot_count_and_no_depth(nmax, n_layers):
+    """S comes from M, K / bk, go, bn and the SM count alone."""
+    x = torch.zeros((4, 1024), dtype=torch.float32)
+    base, _ = TK.launch_plan(x, torch.zeros((1, 6, 2, 128, 64),
+                                            dtype=torch.int8))
+    p, splits = TK.launch_plan(
+        x, torch.zeros((n_layers, 6, nmax, 128, 64), dtype=torch.int8))
+    assert p == base
+    assert splits == -(-nmax // p.slots) and (splits - 1) * p.slots < nmax
+
+
+@pytest.mark.parametrize("m,bm", [(1, 16), (4, 16), (16, 16), (17, 64),
+                                  (128, 64), (129, 64)])
+def test_plan_tile_height_follows_m(m, bm):
+    for dt in (torch.float32, torch.bfloat16):
+        p = TK.plan(m, 86, 32, 128, dt, True)
+        assert p.bm == bm and 1 <= p.slots <= TK.MAX_SLOTS
+        assert p.smem_bytes <= 232448 and p.blocks_per_sm >= 1
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_plan_fills_the_card_at_w_down(m):
+    """yi-6b's w_down (K 11008 = 86 blocks of 128, go 32): at about 28 live
+    slots a column the splits give at least one block per SM (decode:
+    several times over), where one block per column gave 32 or 64."""
+    p = TK.plan(m, 86, 32, 128, torch.float32, True)
+    blocks = -(-m // p.bm) * 32 * -(-28 // p.slots)
+    assert blocks >= TK.SMS * (2 if m <= 16 else 1), (p, blocks)
+
+
+@pytest.mark.parametrize("bk,bn,xdtype,aligned,copy", [
+    (128, 128, "float32", True, True), (128, 128, "bfloat16", True, False),
+    (64, 64, "float32", True, True), (16, 16, "bfloat16", True, False),
+    (40, 24, "float32", False, False),   # bn not a multiple of 16
+    (24, 40, "bfloat16", False, False),  # bn not a multiple of 16
+    (12, 32, "float32", True, False),    # bk * 4 = 48 bytes, bf16 copy 24
+    (12, 32, "bfloat16", False, False),  # bk * 2 bytes = 24
+])
+def test_load_path(bk, bn, xdtype, aligned, copy):
+    """The 16-byte path, and whether f32 x goes through its bf16 copy (on
+    the 16-byte path, when the copy's rows are whole 16-byte chunks too)."""
+    x = torch.zeros((3, 10 * bk), dtype=TORCH[xdtype])
+    blocks = torch.zeros((1, 2, 3, bk, bn), dtype=torch.int8)
+    p, _ = TK.launch_plan(x, blocks)
+    assert p.path == ("aligned" if aligned else "masked")
+    assert p.copy == copy
+    if aligned:  # an x that starts off 16 bytes takes the masked path
+        shifted = torch.zeros(3 * 10 * bk + 1, dtype=TORCH[xdtype])[1:]
+        p2, _ = TK.launch_plan(shifted.view(3, 10 * bk), blocks)
+        assert p2.path == "masked" and not p2.copy
+
+
+# --- the kernel on the card ---
+
+GPU_CASES = [
+    # (m, k, n, bk, bn, x kind, truncate): x kinds "eq5" (f32 on the eq. 5
+    # grid, one MMA plane), "f32" (off the grid, three planes), "bf16"
+    (1, 1024, 512, 128, 128, "eq5", None),
+    (4, 2048, 1024, 128, 128, "eq5", None),
+    (17, 1024, 512, 128, 128, "f32", None),
+    (129, 1024, 512, 128, 128, "bf16", None),
+    (129, 2048, 384, 128, 128, "eq5", 3),      # truncated packing
+    (4, 1024, 640, 64, 128, "f32", None),
+    (17, 400, 240, 40, 24, "eq5", None),       # masked path
+    (129, 400, 240, 40, 24, "bf16", None),     # masked path
+    (1, 480, 200, 24, 40, "f32", None),        # masked path, bk != bn
+    (64, 768, 192, 192, 96, "bf16", 2),        # bn 96: a part column tile
+]
+GPU_TOL = {"eq5": 1e-5, "f32": 1e-5, "bf16": 2e-2}
+
+
+def _gpu_stack(case, dev):
+    """Two layers packed on their own (the loop runtime's form) and as
+    the envelope (the scan runtime's), padding slots poisoned in both: 99
+    blocks, NaN scales, out-of-range row indices."""
+    m, k, n, bk, bn, kind, trunc = case
+    rng = np.random.default_rng(m * 31 + k + bn)
+    dws = []
+    for layer, density in enumerate((0.55, 0.3)):
+        levels = rng.integers(-127, 128, (k, n)).astype(np.int8)
+        keep = rng.random((k // bk, n // bn)) < density
+        levels *= np.repeat(np.repeat(keep, bk, 0), bn, 1).astype(np.int8)
+        bsr = pack_bsr(levels, bk, bn, nnz_max=trunc if layer == 0 else None)
+        scales = rng.uniform(0.5, 1.5, bsr.row_idx.shape).astype(
+            np.float32) / 128
+        dws.append(TD.DeployedWeight([{
+            "blocks": _t(bsr.blocks), "scales": _t(scales),
+            "row_idx": _t(bsr.row_idx), "nnz": _t(bsr.nnz),
+            "density": bsr.density}], k, n, 8))
+    sw = TD.stack_deployed(dws)
+    env = {key: getattr(sw, key).clone() for key in KEYS}
+    own = [{key: dw.packed[0][key].clone() for key in KEYS} for dw in dws]
+    for pk in own + [{key: v[i] for key, v in env.items()}
+                     for i in range(2)]:
+        nmax = pk["blocks"].shape[1]
+        for j in range(pk["blocks"].shape[0]):
+            cnt = min(int(pk["nnz"][j]), nmax)
+            pk["blocks"][j, cnt:] = 99
+            pk["scales"][j, cnt:] = float("nan")
+            pk["row_idx"][j, cnt:] = 10 ** 6
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    if kind == "eq5":
+        x = np.round(np.clip(x, -1, 1) * 127) / 128
+    xt = _t(x).to(dev, torch.bfloat16 if kind == "bf16" else torch.float32)
+    to = lambda pk: [pk[key].to(dev) for key in KEYS]
+    return xt, to(env), [to(pk) for pk in own]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GPU_CASES)
+def test_bsr_kernel_cases_on_gpu(case):
+    """Kernel against plain (f32 x off the eq. 5 grid: against the plain
+    version's function in f64), a second call bit for bit, each layer's own
+    packing bit for bit against the envelope, the load path the plan
+    names, and NaN for a layer id out of range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    x, env, own = _gpu_stack(case, dev)
+    tol = GPU_TOL[case[5]]
+    for i in range(2):
+        before = dict(TK.LAUNCHES_BY_PATH)
+        got = TK.bsr_matmul_stacked(x, *env, i)
+        again = TK.bsr_matmul_stacked(x, *env,
+                                      torch.tensor([i], dtype=torch.int32,
+                                                   device=dev))
+        single = TK.bsr_matmul(x, *own[i])
+        torch.cuda.synchronize()
+        p, splits = TK.launch_plan(x, env[0])
+        path = f"{'split' if splits > 1 else 'single'} {p.path}"
+        assert TK.LAUNCHES_BY_PATH[path] >= before[path] + 2
+        assert torch.equal(got, again), (case, i)
+        assert torch.equal(got, single), (case, i)
+        want = TK.bsr_matmul_stacked_plain(x, *env, i)
+        if case[5] == "f32":  # off the grid: the f64 product
+            want = x.double() @ TK.dense_weight(*env, i, x.shape[1],
+                                                torch.float64)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.to(want.dtype), want, rtol=tol,
+                                   atol=tol)
+    bad = TK.bsr_matmul_stacked(x, *env, 5)
+    torch.cuda.synchronize()
+    assert bad.isnan().all()
