@@ -16,9 +16,12 @@ needed. Phases (any failure exits non-zero):
               single-layer entry points), each call repeated bit for bit
               and each layer's own packing bit for bit equal to the
               envelope, launches counted by path; fake_quant bit for bit (bits 2/4/8, signed and
-              unsigned, f32 and bf16, ragged sizes, NaN, +-inf and exact
-              half-levels); ssd_intra_chunk at the full-width mamba2-780m
-              shape (f32 at 1e-4, bf16 in with f32 out at 2e-2);
+              unsigned, every (in, out) pair of f32 and bf16, ragged
+              sizes, NaN, +-inf and exact half-levels, misaligned views
+              at odd lengths); ssd_intra_chunk at the full-width
+              mamba2-780m shape and SSD_SHAPES (f32 at 1e-4, bf16 in at
+              2e-2, each call repeated bit for bit, bf16 in with f32 out
+              against the function in f64), launches counted by path;
               quant_matmul at test_kernels.py's, kernel_bench's and
               full-width yi-6b's shapes and at its plan's edges within
               QM_TOL of max |plain|, each call repeated bit for bit, with x
@@ -63,7 +66,9 @@ needed. Phases (any failure exits non-zero):
   7. profile - torch.profiler over a short scan-engine run and a short
               mamba2 generate: the device's busy share and its top kernels;
   8. times  - kernel, bound, plain-version and library times per shape
-              (the block-sparse kernel at all six yi-6b rows).
+              (the block-sparse kernel at all six yi-6b rows), and the
+              per-launch device time of the block-sparse, fake_quant and
+              ssd_intra kernels.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -114,6 +119,15 @@ MAMBA_NEW = 32
 LAYER_ULPS = 2
 DRIFT_LIMITS = (2e-3, 1.5e-2, 4e-2)
 MAMBA_F32_TOL = 1e-3
+
+# phase 2's ssd_intra shapes beside the serving one, (C, H, l, N, P): the
+# ragged case (l, N, P off the tile grid: the masked path), l < 16, H = 1,
+# and l past one pass over the kernel's 256 S columns; bf16 in, f32 out
+# within SSD_F64_TOL of max |f64| of the function in f64 (or no farther
+# than the f32 plain version is)
+SSD_SHAPES = ((3, 5, 100, 20, 70), (2, 3, 9, 16, 64), (4, 1, 64, 32, 64),
+              (2, 4, 600, 64, 64))
+SSD_F64_TOL = 1e-5
 
 # card vs CPU (phase 3): a greedy divergence is a fault where the card's
 # top-2 logit margin exceeds the bf16 kernel tolerance (the model is bf16)
@@ -351,17 +365,31 @@ def check_kernels(torch, K, Q, shapes):
 
 def check_fake_quant(torch, FQ):
     """Phase 2: fake_quant against its plain version, bit for bit: NaN
-    where the plain version has NaN, every other value equal. Inputs are
-    1.5-scaled normals salted with NaN, +-inf and exact half-levels (values
-    whose product with the level count is k + 0.5 in f32)."""
+    where the plain version has NaN, every other value equal, for every
+    (input, output) pair of f32 and bf16. Inputs are 1.5-scaled normals
+    salted with NaN, +-inf and exact half-levels (values whose product with
+    the level count is k + 0.5 in f32); then views that start off a 16-byte
+    boundary (``x[k:]``) at odd lengths."""
     gen = torch.Generator(device=DEV).manual_seed(2)
     shapes = [(1,), (3, 100, 130), (MAMBA_BATCH, 1536), (4096, 1536),
               (1536, 6448), (1_000_003,)]
+    dtypes = (torch.float32, torch.bfloat16)
     n = ties = 0
+
+    def compare(x, bits, signed, out, what):
+        nonlocal n
+        got = FQ.fake_quant(x, bits, signed, out_dtype=out)
+        torch.cuda.synchronize()
+        want = FQ.fake_quant_plain(x, bits, signed, out_dtype=out)
+        assert got.dtype == out and got.shape == x.shape, what
+        assert torch.equal(got.isnan(), want.isnan()), what
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), what
+        n += 1
+
     for bits in (2, 4, 8):
         for signed in (False, True):
             q = 2.0 ** (bits - 1) - 1.0 if signed else 2.0 ** bits - 1.0
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in dtypes:
                 for shape in shapes:
                     x = torch.randn(shape, generator=gen, device=DEV) * 1.5
                     flat = x.view(-1)
@@ -378,32 +406,59 @@ def check_fake_quant(torch, FQ):
                         flat[1::101] = float("inf")
                         flat[2::103] = -float("inf")
                     x = x.to(dt)
-                    got = FQ.fake_quant(x, bits, signed)
-                    torch.cuda.synchronize()
-                    want = FQ.fake_quant_plain(x, bits, signed)
-                    assert got.dtype == x.dtype and got.shape == x.shape
-                    assert torch.equal(got.isnan(), want.isnan()), \
-                        (bits, signed, dt, shape)
-                    assert torch.equal(got.nan_to_num(), want.nan_to_num()), \
-                        (bits, signed, dt, shape)
-                    n += 1
-    log(f"[kernel] fake_quant: {n} comparisons bit for bit (tolerance 0), "
-        f"{ties} exact half-levels among the inputs")
+                    for out in dtypes:
+                        compare(x, bits, signed, out,
+                                (bits, signed, dt, out, shape))
+    odd = 0
+    for length in (7, 4099, 65_537, 1_000_003):
+        buf = torch.randn((length + 3,), generator=gen, device=DEV) * 1.5
+        buf[::89] = float("nan")
+        for dt in dtypes:
+            for k in (1, 3):
+                x = buf.to(dt)[k:k + length]
+                assert x.data_ptr() % 16 != 0
+                for out in dtypes:
+                    compare(x, 8, True, out, ("misaligned", length, k, dt,
+                                              out))
+                    odd += 1
+    log(f"[kernel] fake_quant: {n} comparisons bit for bit (tolerance 0) "
+        f"over every (in, out) pair of f32 and bf16, {odd} of them on "
+        f"misaligned views at odd lengths; {ties} exact half-levels among "
+        "the inputs")
     return 0.0
+
+
+def ssd_f64(torch, a, b, c, x):
+    """The intra-chunk function evaluated in float64 (the plain version's
+    formula with every operand widened to f64)."""
+    l = a.shape[-1]
+    cum = a.double().cumsum(-1)
+    causal = torch.ones((l, l), dtype=torch.bool, device=a.device).tril()
+    diff = (cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~causal, float("-inf"))
+    s = torch.einsum("cin,cjn->cij", c.double(), b.double())
+    return torch.einsum("chij,cjhp->cihp", torch.exp(diff) * s[:, None],
+                        x.double())
 
 
 def check_ssd_intra(torch, SI, cfg):
     """Phase 2: ssd_intra_chunk against its plain version at the serving
-    shape (C = batch x chunks, H, l, N, P of mamba2-780m) and a ragged one,
-    with two decay draws: test_kernels.py's (-|N(0,1)| x 0.1) and the serving
-    path's (-softplus(N(0,1)), a = dt * A with A = -1)."""
+    shape (C = batch x chunks, H, l, N, P of mamba2-780m), the ragged one
+    (l, N, P off the tile grid: the masked load path), l < 16, H = 1 and l
+    past one pass over the kernel's 256 S columns, with two decay draws:
+    test_kernels.py's (-|N(0,1)| x 0.1) and the serving path's
+    (-softplus(N(0,1)), a = dt * A with A = -1). Every call repeated bit
+    for bit; bf16 in, f32 out also against the function in f64 (within
+    SSD_F64_TOL of max |f64|, or no farther than the f32 plain version).
+    The per-path launch counts show which shapes took which load path."""
     gen = torch.Generator(device=DEV).manual_seed(4)
     serve_shape = (MAMBA_BATCH * MAMBA_PROMPT // cfg.ssm_chunk,
                    cfg.n_ssm_heads, cfg.ssm_chunk, cfg.ssm_state,
                    cfg.d_inner // cfg.n_ssm_heads)
-    err = {}
+    err, exact = {}, {}
     f32, bf16 = torch.float32, torch.bfloat16
-    for C, H, l, N, P in (serve_shape, (3, 5, 100, 20, 70)):
+    SI.reset_launches()
+    for C, H, l, N, P in (serve_shape,) + SSD_SHAPES:
         for draw in ("kernels", "serve"):
             z = torch.randn((C, H, l), generator=gen, device=DEV)
             a = (-z.abs() * 0.1 if draw == "kernels"
@@ -414,20 +469,39 @@ def check_ssd_intra(torch, SI, cfg):
             for dt, out, tol in ((f32, f32, 1e-4), (bf16, f32, 2e-2),
                                  (bf16, bf16, 2e-2)):
                 args = (a, b.to(dt), c.to(dt), x.to(dt))
+                what = f"ssd_intra {(C, H, l, N, P)} {draw} {dt} -> {out}"
                 got = SI.ssd_intra_chunk(*args, out_dtype=out)
+                again = SI.ssd_intra_chunk(*args, out_dtype=out)
                 torch.cuda.synchronize()
+                assert torch.equal(got, again), f"{what}: repeat"
                 want = SI.ssd_intra_chunk_plain(*args, out_dtype=out)
                 torch.testing.assert_close(
                     got, want, rtol=tol, atol=tol,
-                    msg=lambda m: f"ssd_intra {(C, H, l, N, P)} {dt}: {m}")
+                    msg=lambda m: f"{what}: {m}")
                 key = f"{str(dt)[6:]}->{str(out)[6:]}"
                 err[key] = max(err.get(key, 0.0),
                                float((got.float() - want.float()).abs().max()))
-            del args, got, want
+                if (dt, out) == (bf16, f32):
+                    ref = ssd_f64(torch, *args)
+                    scale = float(ref.abs().max())
+                    d_k = float((got.double() - ref).abs().max()) / scale
+                    d_p = float((want.double() - ref).abs().max()) / scale
+                    assert d_k <= max(SSD_F64_TOL, d_p), (what, d_k, d_p)
+                    exact[(C, H, l, N, P), draw] = (d_k, d_p)
+                    del ref
+            del args, got, again, want
     log(f"[kernel] ssd_intra_chunk at {serve_shape} (C, H, l, N, P) and "
-        "(3, 5, 100, 20, 70): within tolerance (f32 1e-4, bf16 in 2e-2); "
-        "max |kernel - plain|: " + ", ".join(
-            f"{k} {v:.3e}" for k, v in sorted(err.items())))
+        f"{list(SSD_SHAPES)}: within tolerance (f32 1e-4, bf16 in 2e-2), "
+        "each call repeated bit for bit; max |kernel - plain|: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in sorted(err.items()))
+        + f"; bf16 in, f32 out against f64 (bar {SSD_F64_TOL} of max |f64|"
+        ", or the plain f32 version's distance), max |result - f64| / max "
+        "|f64| kernel / plain f32: " + ", ".join(
+            f"{shape} {draw} {k:.3e} / {p:.3e}"
+            for (shape, draw), (k, p) in exact.items())
+        + f"; launches by path {dict(SI.LAUNCHES_BY_PATH)}; plan at the "
+        f"serving shape {SI.plan(*serve_shape[:3], bf16, True)}")
+    assert SI.LAUNCHES_BY_PATH["bf16 masked"] > 0, SI.LAUNCHES_BY_PATH
     return max(err.values())
 
 
@@ -1026,6 +1100,10 @@ def profile_run(torch, label, run, kernels):
     top = sorted(events, key=dev_us, reverse=True)[:6]
     out = {"run": label, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / (wall * 1e3), **extra,
+           "copy_ms_calls": [sum(dev_us(e) for e in events
+                                 if e.key == "aten::copy_") / 1e3,
+                             sum(e.count for e in events
+                                 if e.key == "aten::copy_")],
            **{f"{name}_ms": sum(dev_us(e) for e in events if sym in e.key)
               / 1e3 for name, sym in kernels.items()},
            "top": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top]}
@@ -1169,10 +1247,12 @@ def times(torch, K, Q, sp, stacked):
 
 
 def times_mamba(torch, kern, cfg, params):
-    """Phase 6: fake_quant on the in_proj input at prefill and decode and
-    on the in_proj weight (each QAT call re-quantizes it), and
-    ssd_intra_chunk at the serving shape, as the path calls them (bf16 in,
-    f32 out)."""
+    """Phase 8: fake_quant as the QAT path calls it, on the in_proj input at
+    prefill and decode (bf16 in and out) and on the in_proj weight (each
+    QAT call re-quantizes it: the tanh-normalized f32 weight in, bf16 out),
+    and ssd_intra_chunk at the serving shape (bf16 in, f32 out); beside the
+    event times, each kernel's mean device time per launch
+    (``device_ms``)."""
     from repro_torch.core import quant as Q
     _, FQ, SI, _ = kern
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
@@ -1182,24 +1262,28 @@ def times_mamba(torch, kern, cfg, params):
     rows = []
     w = Q.tanh_normalize(params["layers"]["in_proj"][0].float(),
                          cfg.cim_alpha)
-    for name, x in (
+    for name, x, out in (
             ("act prefill", torch.randn((MAMBA_BATCH * MAMBA_PROMPT, d),
-                                        generator=gen, device=DEV).to(bf16)),
+                                        generator=gen, device=DEV).to(bf16),
+             bf16),
             ("act decode", torch.randn((MAMBA_BATCH, d), generator=gen,
-                                       device=DEV).to(bf16)),
-            ("weight in_proj", w)):
-        # read and write each element once; 5 f32 ops (2 compares, 2
-        # multiplies, 1 rint) each
-        b_ms, b_by = bound_ms(2 * x.numel() * x.element_size(),
-                              5 * x.numel())
+                                       device=DEV).to(bf16), bf16),
+            ("weight in_proj", w, bf16)):
+        # read each element once and write it once in the output type; 5
+        # f32 ops (2 compares, 2 multiplies, 1 rint) each
+        b_ms, b_by = bound_ms(x.numel() * (x.element_size()
+                                           + out.itemsize), 5 * x.numel())
+        run = lambda: FQ.fake_quant(x, 8, True, out_dtype=out)
         row = {"shape": f"fake_quant {name}", "entry": "fake_quant",
-               "dims": list(x.shape), "dtype": str(x.dtype)[6:],
-               "kernel_ms": time_ms(torch, lambda: FQ.fake_quant(x, 8, True),
-                                    flush),
+               "dims": list(x.shape),
+               "dtype": f"{str(x.dtype)[6:]} in, {str(out)[6:]} out",
+               "kernel_ms": time_ms(torch, run, flush),
                "bound_ms": b_ms, "bound_by": b_by,
-               "plain_ms": time_ms(
-                   torch, lambda: FQ.fake_quant_plain(x, 8, True), flush),
-               "library_ms": None}
+               "plain_ms": time_ms(torch, lambda: FQ.fake_quant_plain(
+                   x, 8, True, out_dtype=out), flush),
+               "library_ms": None,
+               "device_ms": device_split(torch, run, flush,
+                                         ("fake_quant",))["fake_quant"]}
         rows.append(row)
         log(json.dumps(row))
     C = MAMBA_BATCH * MAMBA_PROMPT // cfg.ssm_chunk
@@ -1212,21 +1296,29 @@ def times_mamba(torch, kern, cfg, params):
     x = torch.randn((C, l, H, P), generator=gen, device=DEV).to(bf16)
     # the least work: C B^T once per chunk, (s * L) @ x once per head, over
     # the causal pairs i >= j only (L is 0 above the diagonal), l (l + 1) / 2
-    # of them, 2 FLOPs per multiply-add; a, b, c, x read once and y (f32)
-    # written once
+    # of them, 2 FLOPs per multiply-add of bf16 operands with f32 sums, at
+    # the bf16 tensor-core rate; a, b, c, x read once and y (f32) written
+    # once. The f32 CUDA-core rate (the first kernel's FFMA) is printed
+    # beside it, labelled, for the record.
     pairs = l * (l + 1) // 2
-    b_ms, b_by = bound_ms(4 * C * H * l + 2 * 2 * C * l * N
-                          + 2 * C * l * H * P + 4 * C * l * H * P,
-                          C * (2 * pairs * N + H * 2 * pairs * P))
+    nbytes = (4 * C * H * l + 2 * 2 * C * l * N + 2 * C * l * H * P
+              + 4 * C * l * H * P)
+    flops = C * (2 * pairs * N + H * 2 * pairs * P)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)
+    run = lambda: SI.ssd_intra_chunk(a, b, c, x, out_dtype=f32)
     row = {"shape": "ssd_intra serve", "entry": "ssd_intra_chunk",
            "dims": {"C": C, "H": H, "l": l, "N": N, "P": P},
            "dtype": "bfloat16 in, float32 out",
-           "kernel_ms": time_ms(torch, lambda: SI.ssd_intra_chunk(
-               a, b, c, x, out_dtype=f32), flush),
+           "kernel_ms": time_ms(torch, run, flush),
            "bound_ms": b_ms, "bound_by": b_by,
+           "bound_ms_at_f32_cuda_core_rate_first_kernel": bound_ms(
+               nbytes, flops)[0],
            "plain_ms": time_ms(torch, lambda: SI.ssd_intra_chunk_plain(
                a, b, c, x, out_dtype=f32), flush),
-           "library_ms": None}
+           "library_ms": None,
+           "device_ms": device_split(torch, run, flush,
+                                     ("ssd_intra",))["ssd_intra"],
+           "plan": dataclasses.asdict(SI.launch_plan(a, b, c, x))}
     rows.append(row)
     log(json.dumps(row))
     return rows

@@ -187,7 +187,8 @@ def deployed_matmul(x: torch.Tensor, dw: DeployedWeight, layer: int = 0,
     rebound to them, so the result is float32 even for a bf16 model (the
     reference does the same, and the residual stream widens with it)."""
     if a_bits:
-        x = ops.fake_quant(x.float(), a_bits, signed=True)
+        x = ops.fake_quant(x, a_bits, signed=True,
+                           out_dtype=torch.float32)
     lead = x.shape[:-1]
     y = ops.bsr_matmul(x.reshape(-1, dw.d_in).contiguous(), dw.packed[layer])
     return y.reshape(*lead, dw.d_out).to(x.dtype)
@@ -198,7 +199,8 @@ def stacked_matmul(x: torch.Tensor, sw: StackedWeight, layer,
     """Serving-path matmul against layer ``layer`` of a uniform envelope;
     bit-identical to ``deployed_matmul`` on that layer's own packing."""
     if a_bits:
-        x = ops.fake_quant(x.float(), a_bits, signed=True)
+        x = ops.fake_quant(x, a_bits, signed=True,
+                           out_dtype=torch.float32)
     lead = x.shape[:-1]
     y = ops.bsr_matmul_stacked(x.reshape(-1, sw.d_in).contiguous(),
                                sw.blocks, sw.scales, sw.row_idx, sw.nnz,

@@ -4,7 +4,10 @@
 // (fake_quant, body _kernel :16). For every element, in f32:
 //   unsigned (eq. 5): y = rint(clamp(x, 0, 1) * (2^b - 1)) / 2^b
 //   signed   (eq. 8): y = rint(clamp(x, -1, 1) * (2^(b-1) - 1)) / 2^(b-1)
-// and y is written in x's type (f32, or bf16 rounded to nearest even).
+// x is f32 or bf16 and y is f32 or bf16, any pair: a bf16 x widens to f32
+// exactly, and a bf16 y is the f32 result rounded to nearest even, so the
+// pair computes fake_quant(x.float()).to(y's type) in one pass (the callers
+// no longer widen or narrow around it with a separate copy).
 //
 // Bit-exact with jnp/torch: rintf rounds half to even as jnp.round and
 // torch.round do (roundf would round half away from zero); the clamp is
@@ -13,11 +16,22 @@
 // with __fmul_rn (no contraction), and the division by 2^b is a multiply by
 // its exact reciprocal.
 //
+// What bounds it: bytes. Each element is read once and written once over
+// the 3.35 TB/s of HBM; the five f32 operations per element are far below
+// the CUDA cores' rate.
+//
 // Design. The TPU kernel tiles a padded 2-D view into 256x256 VMEM blocks.
-// Here the tensor is one flat array: a grid-stride loop, one element per
-// thread per step, any length, no padding. It is bound by bytes (one read
-// and one write per element over 3.35 TB/s); nothing else is worth doing
-// for a pass this simple until it shows in a profile (vector loads later).
+// Here the tensor is one flat array, cut into vectors of V elements (V = 8
+// when either side is bf16, else 4), so that every load and store is 16
+// bytes wide (a side of 8 f32 moves as two 16-byte halves). Each thread
+// keeps kUnroll vectors in flight before it computes, which covers the HBM
+// latency; a tensor with fewer vectors than a block's threads per SM
+// takes one vector a thread instead. The vectors start where y is 16-byte
+// aligned (a tensor from torch.empty always is); the elements before that
+// point and after the last whole vector are a scalar head and tail. When x
+// is not 16-byte aligned at the same element (a view such as x[1:]), the
+// body loads x element by element and still stores 16 bytes. The block
+// count comes from the device's SM count, queried once per device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,6 +40,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;         // vectors in flight per thread
+constexpr int kBlocksPerSm = 8;    // 2048 threads: a full SM
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -36,48 +53,149 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fake_quant_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
-                  float lo, float qmax, float inv_scale) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    float v = to_f32(x[i]);
-    v = v < lo ? lo : v;    // compares, not fmaxf/fminf: NaN passes through
+struct Quant {
+  float lo, qmax, inv_scale;
+  __device__ __forceinline__ float operator()(float v) const {
+    v = v < lo ? lo : v;  // compares, not fmaxf/fminf: NaN passes through
     v = v > 1.f ? 1.f : v;
-    store(y + i, rintf(__fmul_rn(v, qmax)) * inv_scale);
+    return rintf(__fmul_rn(v, qmax)) * inv_scale;
   }
+};
+
+// V elements of type T as whole 16-byte words
+template <typename T, int V>
+struct alignas(16) Vec {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(Vec<T, V>& out, const T* p,
+                                         bool vec_load) {
+  if (vec_load) {
+    constexpr int kWords = V * (int)sizeof(T) / 16;
+#pragma unroll
+    for (int w = 0; w < kWords; ++w)
+      reinterpret_cast<uint4*>(&out)[w] =
+          __ldg(reinterpret_cast<const uint4*>(p) + w);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) out.v[e] = p[e];
+  }
+}
+
+// y[i] = quant(x[i]) over n elements. Vectors cover [head, head + nv * V);
+// the scalar head [0, head) and tail [head + nv * V, n) go to the first
+// threads of the grid.
+template <typename Tin, typename Tout, int V, bool VEC_IN>
+__global__ void __launch_bounds__(kThreads)
+fake_quant_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, int64_t n,
+                  int head, int64_t nv, int unroll, Quant q) {
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t body_end = head + nv * V;
+  if (tid < head) store(y + tid, q(to_f32(x[tid])));
+  if (tid < n - body_end)
+    store(y + body_end + tid, q(to_f32(x[body_end + tid])));
+
+  const Tin* xb = x + head;
+  Tout* yb = y + head;
+  // a block takes `unroll` runs of kThreads contiguous vectors a step
+  const int64_t per_block = (int64_t)kThreads * unroll;
+  for (int64_t base = blockIdx.x * per_block + threadIdx.x; base < nv;
+       base += gridDim.x * per_block) {
+    Vec<Tin, V> in[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t vi = base + u * kThreads;
+      if (u < unroll && vi < nv) load_vec<Tin, V>(in[u], xb + vi * V, VEC_IN);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t vi = base + u * kThreads;
+      if (u >= unroll || vi >= nv) continue;
+      Vec<Tout, V> out;
+#pragma unroll
+      for (int e = 0; e < V; ++e) store(&out.v[e], q(to_f32(in[u].v[e])));
+      constexpr int kWords = V * (int)sizeof(Tout) / 16;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w)
+        reinterpret_cast<uint4*>(yb + vi * V)[w] =
+            reinterpret_cast<const uint4*>(&out)[w];
+    }
+  }
+}
+
+int sm_count(int device) {
+  static int cached[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return 132;
+  if (cached[device] == 0) {
+    int v = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess ||
+        v <= 0)
+      v = 132;
+    cached[device] = v;
+  }
+  return cached[device];
+}
+
+template <typename Tin, typename Tout>
+cudaError_t launch(const void* xp, void* yp, int64_t n, Quant q, int device,
+                   cudaStream_t st) {
+  constexpr int V = (sizeof(Tin) == 2 || sizeof(Tout) == 2) ? 8 : 4;
+  const Tin* x = static_cast<const Tin*>(xp);
+  Tout* y = static_cast<Tout*>(yp);
+  // elements before y reaches a 16-byte boundary (sizeof(Tout) divides it)
+  const uintptr_t ya = reinterpret_cast<uintptr_t>(y) & 15;
+  int64_t head = ya ? (16 - (int64_t)ya) / (int64_t)sizeof(Tout) : 0;
+  if (head > n) head = n;
+  const int64_t nv = (n - head) / V;
+  const int64_t tail = n - head - nv * V;
+  const bool vec_in =
+      ((reinterpret_cast<uintptr_t>(x + head)) & 15) == 0;
+  // kUnroll vectors a thread; one when the tensor has fewer vectors than
+  // a block's threads per SM (decode-sized tensors: more blocks, each SM
+  // its own)
+  const int sms = sm_count(device);
+  const int unroll = nv < (int64_t)sms * kThreads ? 1 : kUnroll;
+  int64_t blocks = (nv + (int64_t)kThreads * unroll - 1) / (kThreads * unroll);
+  const int64_t cap = (int64_t)sms * kBlocksPerSm;
+  if (blocks > cap) blocks = cap;
+  const int64_t edge = head > tail ? head : tail;  // scalar threads needed
+  const int64_t min_blocks = (edge + kThreads - 1) / kThreads;
+  if (blocks < min_blocks) blocks = min_blocks;
+  if (blocks < 1) blocks = 1;
+  if (vec_in)
+    fake_quant_kernel<Tin, Tout, V, true><<<(int)blocks, kThreads, 0, st>>>(
+        x, y, n, (int)head, nv, unroll, q);
+  else
+    fake_quant_kernel<Tin, Tout, V, false><<<(int)blocks, kThreads, 0, st>>>(
+        x, y, n, (int)head, nv, unroll, q);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// y = fake_quant(x) over n elements; bits in [1, 24]. Launches on `stream`
-// of device `device` and returns the cudaError_t of the launch (0 = ok).
-int fake_quant_launch(const void* x, void* y, int64_t n, int is_bf16,
-                      int bits, int is_signed, int device, void* stream) {
+// y = fake_quant(x) over n elements; bits in [1, 24]; in_bf16 / out_bf16
+// pick bf16 (else f32) for x and y. Launches on `stream` of device
+// `device` and returns the cudaError_t of the launch (0 = ok).
+int fake_quant_launch(const void* x, void* y, int64_t n, int in_bf16,
+                      int out_bf16, int bits, int is_signed, int device,
+                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
   const int e = is_signed ? bits - 1 : bits;  // 2^e is the divisor
-  const float qmax = ldexpf(1.f, e) - 1.f;
-  const float inv_scale = ldexpf(1.f, -e);
-  const float lo = is_signed ? -1.f : 0.f;
-  // at most 16 blocks per SM of an H100 (132 SMs); the loop strides past it
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  const Quant q{is_signed ? -1.f : 0.f, ldexpf(1.f, e) - 1.f,
+                ldexpf(1.f, -e)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    fake_quant_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        n, lo, qmax, inv_scale);
-  else
-    fake_quant_kernel<float><<<blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), n, lo, qmax,
-        inv_scale);
-  return static_cast<int>(cudaGetLastError());
+  using bf16 = __nv_bfloat16;
+  if (in_bf16 && out_bf16) err = launch<bf16, bf16>(x, y, n, q, device, st);
+  else if (in_bf16) err = launch<bf16, float>(x, y, n, q, device, st);
+  else if (out_bf16) err = launch<float, bf16>(x, y, n, q, device, st);
+  else err = launch<float, float>(x, y, n, q, device, st);
+  return static_cast<int>(err);
 }
 
 const char* fake_quant_error_string(int err) {

@@ -46,13 +46,14 @@ def bsr_matmul_stacked(x: torch.Tensor, blocks: torch.Tensor,
                                              layer)
 
 
-def fake_quant(x: torch.Tensor, bits: int, signed: bool = False
-               ) -> torch.Tensor:
-    """eq. 5 / eq. 8 fake quant on the kernel, ``x.dtype`` out; ``bits >=
-    32`` leaves ``x`` as it is, as ``core.quant`` does."""
+def fake_quant(x: torch.Tensor, bits: int, signed: bool = False,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """eq. 5 / eq. 8 fake quant on the kernel, ``out_dtype`` (default
+    ``x.dtype``) out; ``bits >= 32`` leaves the values as they are, as
+    ``core.quant`` does (cast to ``out_dtype`` when one is given)."""
     if bits >= 32:
-        return x
-    return _fq.fake_quant(x, bits, signed)
+        return x if out_dtype is None else x.to(out_dtype)
+    return _fq.fake_quant(x, bits, signed, out_dtype)
 
 
 def quant_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor

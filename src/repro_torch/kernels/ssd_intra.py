@@ -1,4 +1,5 @@
-"""Mamba2 SSD intra-chunk block: the CUDA kernel's wrapper and plain version.
+"""Mamba2 SSD intra-chunk block: the CUDA kernel's wrapper, launch plan and
+plain version.
 
 ``csrc/ssd_intra.cu`` replaces the Pallas TPU kernel ``ssd_intra_chunk`` of
 ``repro/kernels/ssd_intra.py``. For every chunk c and head h, in f32:
@@ -14,28 +15,165 @@ given: ``ssd_chunked`` asks for f32, so the model path rounds ``y_diag`` no
 earlier than the reference does. The kernel writes f32; any other
 ``out_dtype`` is a cast of that, as in the plain version.
 
-The wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. ``LAUNCHES`` counts the launches.
+The kernel runs on bf16 tensor cores: ``c b^T`` once per chunk and row tile
+for a group of heads, ``(S * L) @ x`` with S * L as a bf16 hi plane and a lo
+plane (``split_hi_lo`` is the CPU twin of that split), f32 operands as three
+exact bf16 planes. ``plan`` picks the head group and the grid from the
+shapes and the SM count. The wrapper takes the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+``LAUNCHES`` counts the launches, ``LAUNCHES_BY_PATH`` the same launches by
+operand type and load path.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 LAUNCHES = 0
-MAX_LEN = 1024  # the kernel keeps cum (l floats) in shared memory
+LAUNCHES_BY_PATH = {"bf16 aligned": 0, "bf16 masked": 0, "f32 aligned": 0,
+                    "f32 masked": 0}
+MAX_LEN = 1024  # l of at most 4 passes over the kernel's 256 S columns
+
+# the kernel's tiling (csrc/ssd_intra.cu): ROWS rows per i-tile, at most
+# MAX_S_COLS columns of S per pass, a ring of STAGES stages, each the larger
+# of a phase-1 stage (64 rows of c and of b over 32 columns of N, rows
+# padded to 40) and a phase-2 stage (two heads of 32 x rows over 64 columns
+# of P, rows padded to 72), at most MAX_HEADS heads per block
+ROWS, MAX_S_COLS, THREADS, STAGES, MAX_HEADS = 64, 256, 256, 4, 16
+_STAGE_ELEMS = max(2 * ROWS * (32 + 8), 2 * 32 * (64 + 8))
+SMS = 132  # streaming multiprocessors of an H100 SXM, unless told
+MIN_BLOCKS = 2  # the launch bounds' resident blocks per SM (128 registers)
+_SMEM_PER_SM, _SMEM_RESERVED = 233472, 1024  # per SM, and kept per block
 
 _LIB = None
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    heads: int       # heads per block (the last group may hold fewer)
+    groups: int      # head groups, ceil(H / heads)
+    row_tiles: int   # i-tiles of ROWS rows, ceil(l / ROWS)
+    s_cols: int      # S columns per pass, min(row_tiles * ROWS, MAX_S_COLS)
+    blocks: int      # grid: chunks x row_tiles x groups
+    smem_bytes: int  # dynamic shared memory per block
+    blocks_per_sm: int  # resident blocks an SM holds
+    path: str        # "<bf16|f32> <aligned|masked>"
+    n_chunks: int
+    n_heads: int
+
+    def block(self, idx: int) -> Tuple[int, int, int, int]:
+        """(chunk, i-tile, first head, end head) of block ``idx``, as the
+        kernel decodes it: the heaviest i-tile first."""
+        per_tile = self.n_chunks * self.groups
+        tile = self.row_tiles - 1 - idx // per_tile
+        chunk, grp = divmod(idx % per_tile, self.groups)
+        h0 = grp * self.heads
+        return chunk, tile, h0, min(self.n_heads, h0 + self.heads)
+
+
+def smem_bytes(elem: int, l: int, heads: int) -> int:
+    """The kernel's dynamic shared memory: the staging ring, S (ROWS rows
+    of s_cols + 8 f32) and the decay's prefix sums (each head of the
+    group, l padded to ROWS)."""
+    lpad = -(-l // ROWS) * ROWS
+    s_cols = min(lpad, MAX_S_COLS)
+    return (STAGES * _STAGE_ELEMS * elem + ROWS * (s_cols + 8) * 4
+            + heads * lpad * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n_chunks: int, n_heads: int, l: int, dtype: torch.dtype,
+         aligned: bool, sms: int = SMS) -> Plan:
+    """The kernel's launch plan for (C, H, l) in ``dtype`` on the load path
+    ``aligned`` picks (``is_aligned``).
+
+    The causal work of i-tile k (0-based) is k + 1 tile units per head, so
+    a chunk's heads carry H * T (T + 1) / 2 of them over T i-tiles. A head
+    group fits when its heaviest block (the last i-tile, T units a head)
+    is at most the average load of a resident block slot (``sms`` times
+    the blocks an SM holds at that group's shared memory), so that the
+    blocks, dispatched heaviest first, even out over the SMs. Among the
+    even divisors of H (at most MAX_HEADS) that fit, the plan takes the
+    one with the most resident blocks per SM, then the largest (S is
+    computed once per block and shared by its group). With no such
+    divisor it ranks every even count alike, the last group masked (two
+    when none fits; one head when H = 1)."""
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"b, c and x must be float32 or bfloat16, got {dtype}")
+    elem = 2 if dtype == torch.bfloat16 else 4
+    tiles = -(-l // ROWS)
+    work = n_chunks * n_heads * tiles * (tiles + 1) / 2
+
+    def per_sm(heads):
+        return max(1, min(_SMEM_PER_SM // (smem_bytes(elem, l, heads)
+                                           + _SMEM_RESERVED),
+                          2048 // THREADS, MIN_BLOCKS))
+
+    def fits(heads):
+        return heads * tiles <= work / (sms * per_sm(heads))
+
+    if n_heads == 1:
+        heads = 1
+    else:
+        evens = [g for g in range(2, min(n_heads, MAX_HEADS) + 1, 2)
+                 if n_heads % g == 0 and fits(g)]
+        masked = [g for g in range(2, min(n_heads, MAX_HEADS) + 1, 2)
+                  if fits(g)]
+        rank = lambda g: (per_sm(g), g)  # resident blocks first
+        heads = (max(evens, key=rank) if evens
+                 else max(masked, key=rank) if masked else 2)
+    groups = -(-n_heads // heads)
+    return Plan(heads, groups, tiles, min(tiles * ROWS, MAX_S_COLS),
+                n_chunks * tiles * groups, smem_bytes(elem, l, heads),
+                per_sm(heads), f"{'bf16' if elem == 2 else 'f32'} "
+                f"{'aligned' if aligned else 'masked'}", n_chunks, n_heads)
+
+
+def is_aligned(b: torch.Tensor, c: torch.Tensor, x: torch.Tensor) -> bool:
+    """Whether the 16-byte path can take the operands: b, c and x 16-byte
+    aligned, and rows of N and of P elements whole 16-byte chunks. a and y
+    are read and written element by element."""
+    elem = x.element_size()
+    return (all(t.data_ptr() % 16 == 0 for t in (b, c, x))
+            and (b.shape[-1] * elem) % 16 == 0
+            and (x.shape[-1] * elem) % 16 == 0)
+
+
+def launch_plan(a, b, c, x) -> Plan:
+    n_c, n_h, l = a.shape
+    return plan(n_c, n_h, l, x.dtype, is_aligned(b, c, x),
+                _sm_count(x.get_device()))
+
+
+@functools.lru_cache(maxsize=64)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_hi_lo(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's split of f32 ``S * L`` into two bf16 planes, on any
+    device: ``hi = bf16(v)``, ``lo = bf16(v - hi)``, each rounded to
+    nearest even; ``hi + lo`` is within 2^-17 |v| of v (two 8-bit
+    significands, the second rounded), and each plane times a bf16 x is
+    exact in f32."""
+    v = v.float()
+    hi = v.to(torch.bfloat16)
+    lo = (v - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+    for path in LAUNCHES_BY_PATH:
+        LAUNCHES_BY_PATH[path] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -44,7 +182,7 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("ssd_intra")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ssd_intra_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                         p]
+                                         i, i, i, p]
         lib.ssd_intra_launch.restype = i
         lib.ssd_intra_error_string.argtypes = [i]
         lib.ssd_intra_error_string.restype = ctypes.c_char_p
@@ -106,21 +244,26 @@ def ssd_intra_chunk(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         raise ValueError("ssd_intra operands must be contiguous")
     n_c, n_h, l = a.shape
     n, p = b.shape[-1], x.shape[-1]
-    if l > MAX_LEN or n_c > 65535:
-        raise ValueError(f"the ssd_intra kernel takes l <= {MAX_LEN} and "
-                         f"C <= 65535, got l={l}, C={n_c}")
+    if l > MAX_LEN:
+        raise ValueError(f"the ssd_intra kernel takes l <= {MAX_LEN}, got "
+                         f"l={l}")
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y.to(out_dtype)
+    pl = launch_plan(a, b, c, x)
     lib = _lib()
+    dev = x.get_device()
+    # the raw handle of the current stream (torch.cuda.current_stream()
+    # builds a Stream object, several us of host time per launch)
     err = lib.ssd_intra_launch(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), x.data_ptr(), y.data_ptr(),
-        n_c, n_h, l, n, p, int(x.dtype == torch.bfloat16),
-        x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        n_c, n_h, l, n, p, int(x.dtype == torch.bfloat16), pl.heads,
+        int(pl.path.endswith("aligned")), pl.smem_bytes, dev,
+        torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError("ssd_intra kernel launch failed: "
                            f"{lib.ssd_intra_error_string(err).decode()}")
     global LAUNCHES
     LAUNCHES += 1
+    LAUNCHES_BY_PATH[pl.path] += 1
     return y.to(out_dtype)

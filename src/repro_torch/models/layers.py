@@ -39,7 +39,8 @@ def maybe_quant_w(w: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
     reference does."""
     if cim.mode == "qat" and cim.quant.enabled:
         wq = Q.tanh_normalize(w.float(), cim.quant.group_size)
-        return ops.fake_quant(wq, cim.quant.w_bits, signed=True).to(w.dtype)
+        return ops.fake_quant(wq, cim.quant.w_bits, signed=True,
+                              out_dtype=w.dtype)
     return w
 
 

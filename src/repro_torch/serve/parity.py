@@ -56,8 +56,8 @@ def record_eq5(sp: DP.ServingParams, out: List[Record]):
         finally:
             pending.pop()
 
-    def fake_quant(x, bits, signed=False):
-        y = quant(x, bits, signed)
+    def fake_quant(x, bits, signed=False, out_dtype=None):
+        y = quant(x, bits, signed, out_dtype)
         if pending:
             out.append((pending[-1], _levels(y, bits, signed)))
         return y

@@ -8,14 +8,20 @@ side runs ``repro.kernels.ops.fake_quant`` in interpret mode,
 numpy inputs (salted with NaN, +-inf and exact half-levels) feed both.
 Tolerance 0: every step is one f32 multiply, a half-to-even round and a
 division by a power of two, which both frameworks do exactly alike. The
-CUDA kernel itself is held against the plain version by the ``cuda``-marked
-test, which runs only on a GPU.
+result type is decoupled from the input's (``out_dtype``): every pair of
+f32 and bf16 equals the reference on ``x.astype(f32)`` cast to the output
+type, and the callers that fuse the widening or narrowing into the kernel
+(``deploy.deployed_matmul``/``stacked_matmul``, ``layers.maybe_quant_w``)
+give the same bits as the composition they replaced. The CUDA kernel
+itself is held against the plain version by the ``cuda``-marked tests,
+which run only on a GPU.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.convert import tensor_from_numpy
+from repro_torch.core import deploy as TD
 from repro_torch.core import quant as TQ
 from repro_torch.core.cim_layer import CIMConfig
 from repro_torch.core.quant import QuantConfig
@@ -24,6 +30,7 @@ from repro_torch.kernels import ops as TOPS
 from repro_torch.models import layers as TL
 
 SHAPES = [(64, 64), (3, 100, 130), (513,)]
+DTYPES = ["float32", "bfloat16"]
 
 
 def _reference():
@@ -113,6 +120,67 @@ def test_signed_fake_quant_is_eq8_on_normalized_weights(bits, dtype):
                                   _f32(want))
 
 
+@pytest.mark.parametrize("out_dtype", DTYPES)
+@pytest.mark.parametrize("in_dtype", DTYPES)
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("bits", [2, 8])
+def test_fake_quant_out_dtype_matches_reference_cast(bits, signed, in_dtype,
+                                                     out_dtype):
+    """Every (input, output) pair of f32 and bf16: the reference's
+    ``fake_quant`` on ``x.astype(f32)``, cast to the output type."""
+    jnp, _, ROPS, RREF = _reference()
+    x = _inputs((3, 100, 130), bits, signed, in_dtype, seed=5)
+    xj, xt = _both(x, in_dtype)
+    out = getattr(torch, out_dtype)
+    got = TFQ.fake_quant(xt, bits, signed, out_dtype=out)
+    assert got.dtype == out and got.shape == xt.shape
+    x32 = xj.astype(jnp.float32)
+    for want in (ROPS.fake_quant(x32, bits, signed=signed, interpret=True),
+                 RREF.fake_quant_ref(x32, bits, signed)):
+        np.testing.assert_array_equal(
+            _f32(got), _f32(want.astype(getattr(jnp, out_dtype))))
+    np.testing.assert_array_equal(
+        _f32(got), _f32(TFQ.fake_quant(xt.float(), bits, signed).to(out)))
+    np.testing.assert_array_equal(
+        _f32(TOPS.fake_quant(xt, bits, signed, out_dtype=out)), _f32(got))
+
+
+def _cim(mode="qat"):
+    q = dict(w_bits=8, a_bits=8, group_size=128, a_signed=True)
+    return CIMConfig(quant=QuantConfig(**q), mode=mode)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_callers_match_unfused_composition(dtype):
+    """The callers that pass ``out_dtype`` give the bits of the composition
+    they replaced: ``fake_quant(x.float())`` before the block-sparse matmul
+    (``deployed_matmul``, ``stacked_matmul``), and ``fake_quant(wq).to(
+    w.dtype)`` for a QAT weight (``maybe_quant_w``)."""
+    rng = np.random.default_rng(21)
+    dt = getattr(torch, dtype)
+    w = torch.from_numpy((rng.standard_normal((2, 64, 96)) * 0.2
+                          ).astype(np.float32))
+    cim = _cim()
+    dws = [TD.deploy_weight(w[i], cim, bk=16, bn=32) for i in range(2)]
+    sw = TD.stack_deployed(dws)
+    x = torch.from_numpy((rng.standard_normal((3, 5, 64)) * 0.7
+                          ).astype(np.float32)).to(dt)
+    for i in range(2):
+        xq = TFQ.fake_quant(x.float(), 8, signed=True)
+        want = TOPS.bsr_matmul(xq.reshape(-1, 64), dws[i].packed[0]
+                               ).reshape(3, 5, 96)
+        got = TD.deployed_matmul(x, dws[i], a_bits=8)
+        got_st = TD.stacked_matmul(x, sw, i, a_bits=8)
+        assert got.dtype == got_st.dtype == torch.float32
+        assert torch.equal(got, want) and torch.equal(got_st, want)
+    wt = w[0].to(dt)
+    want = TFQ.fake_quant(TQ.tanh_normalize(wt.float(), 128), 8,
+                          signed=True).to(wt.dtype)
+    got = TL.maybe_quant_w(wt, cim)
+    assert got.dtype == wt.dtype and torch.equal(got, want)
+    assert TL.maybe_quant_w(wt, _cim("dense")) is wt
+
+
 def test_layer_quantizers_match_reference():
     """``maybe_quant_a`` bit for bit; ``maybe_quant_w`` up to one level
     where eq. 8's pre-rounding value is a half-level and torch's and XLA's
@@ -145,17 +213,38 @@ def test_fake_quant_wrapper_checks():
         TFQ.fake_quant(torch.zeros(4, dtype=torch.int32), 8)
     with pytest.raises(ValueError):
         TFQ.fake_quant(torch.zeros(4), 0)
+    with pytest.raises(TypeError):
+        TFQ.fake_quant(torch.zeros(4), 8, out_dtype=torch.int32)
     x = torch.randn(3, 5)
     assert TOPS.fake_quant(x, 32) is x  # eq. 5 at 32 bits: left in float
+    assert torch.equal(TOPS.fake_quant(x, 32, out_dtype=torch.bfloat16),
+                       x.to(torch.bfloat16))
     t = x.t()  # non-contiguous input, same values out
     assert torch.equal(TFQ.fake_quant(t, 4, True),
                        TFQ.fake_quant_plain(t.contiguous(), 4, True))
 
 
+def _gpu_input(shape, bits, dtype, extra=0):
+    """1.5-scaled normals salted with NaN and +-inf, on the card, with
+    ``extra`` leading elements for a misaligned view."""
+    rng = np.random.default_rng(bits + extra)
+    x = rng.standard_normal(int(np.prod(shape)) + extra).astype(np.float32)
+    x *= 1.5
+    x[::29] = np.nan
+    x[1::31] = np.inf
+    x[2::37] = -np.inf
+    return torch.from_numpy(x).to("cuda", dtype)
+
+
+def _assert_same(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.cuda
 def test_fake_quant_kernel_matches_plain_on_gpu():
     """The CUDA kernel against its plain version, bit for bit, on the
-    card."""
+    card: every (input, output) pair of f32 and bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     n0 = TFQ.LAUNCHES
@@ -163,16 +252,32 @@ def test_fake_quant_kernel_matches_plain_on_gpu():
     for bits in (2, 4, 8):
         for signed in (False, True):
             for dt in (torch.float32, torch.bfloat16):
-                for shape in SHAPES + [(4096, 1536), (1,)]:
-                    rng = np.random.default_rng(bits)
-                    x = rng.standard_normal(shape).astype(np.float32) * 1.5
-                    x.reshape(-1)[::29] = np.nan
-                    x.reshape(-1)[1::31] = np.inf
-                    xt = torch.from_numpy(x).to("cuda", dt)
-                    got = TFQ.fake_quant(xt, bits, signed)
-                    torch.cuda.synchronize()
-                    count += 1
-                    want = TFQ.fake_quant_plain(xt, bits, signed)
-                    torch.testing.assert_close(got, want, rtol=0, atol=0,
-                                               equal_nan=True)
+                for out in (torch.float32, torch.bfloat16):
+                    for shape in SHAPES + [(4096, 1536), (1,)]:
+                        xt = _gpu_input(shape, bits, dt).reshape(shape)
+                        got = TFQ.fake_quant(xt, bits, signed, out_dtype=out)
+                        torch.cuda.synchronize()
+                        count += 1
+                        _assert_same(got, TFQ.fake_quant_plain(
+                            xt, bits, signed, out_dtype=out))
     assert TFQ.LAUNCHES == n0 + count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 9, 1000, 4099, 65_537])
+def test_fake_quant_kernel_misaligned_and_odd_lengths_on_gpu(n):
+    """Views that start off a 16-byte boundary (``x[k:]``: the kernel's
+    scalar head and element-wise loads) and lengths off the 16-byte vector
+    (its scalar tail), every dtype pair, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for dt in (torch.float32, torch.bfloat16):
+        for out in (torch.float32, torch.bfloat16):
+            for k in (0, 1, 3):
+                x = _gpu_input((n,), 8, dt, extra=k)[k:]
+                assert x.numel() == n
+                for signed in (False, True):
+                    got = TFQ.fake_quant(x, 8, signed, out_dtype=out)
+                    torch.cuda.synchronize()
+                    _assert_same(got, TFQ.fake_quant_plain(
+                        x, 8, signed, out_dtype=out))
