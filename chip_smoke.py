@@ -11,7 +11,8 @@ needed. Phases (any failure exits non-zero):
   2. kernel - each kernel against its plain PyTorch version on the card:
               the block-sparse int8 kernel at full-width yi-6b shapes on
               its 16-byte path and at two tiles on its masked path
-              (decode and prefill rows, eq. 5 f32, off-grid f32 and bf16
+              (decode, speculative verify and prefill rows, a draft-tier
+              packing at SPEC_DRAFT_SPARSITY, eq. 5 f32, off-grid f32 and bf16
               inputs, poisoned padding, truncated packings, stacked and
               single-layer entry points), each call repeated bit for bit
               and each layer's own packing bit for bit equal to the
@@ -27,7 +28,15 @@ needed. Phases (any failure exits non-zero):
               QM_TOL of max |plain|, each call repeated bit for bit, with x
               a row and column slice of a NaN-poisoned buffer in two cases
               (the masked load path; the yi-6b and kernel_bench shapes on
-              the 16-byte path, by the per-path launch counts);
+              the 16-byte path, by the per-path launch counts); the paged
+              decode-attention kernel at yi-6b's heads (32 over 4 kv
+              heads, dh 128) over DA_VIEWS (the main path's view and
+              serving contexts), decode and verify rows, a sliding window
+              and padded heads, bf16 within DA_TOL of max |plain| and f32
+              within DA_F32_TOL, each call repeated bit for bit, a verify
+              launch bit for bit equal to one-token launches over views
+              cut past each position; the paged pass's row-by-row norm
+              equal alone and in batches of 1 to NORM_ROWS rows;
   3. serve yi-6b - yi-6b at full width in bf16, depth cut to 4 layers,
               random weights from a seed, compressed (uniform 128x128 tile,
               60% tile sparsity) and served by BatchServer on the scan and
@@ -37,7 +46,21 @@ needed. Phases (any failure exits non-zero):
               path's logits must agree with the plain path's; then the
               same packing saved, booted on the CPU and run there: the
               card-vs-CPU logit gap, greedy tokens by the margin rule and
-              the eq. 5 levels that differ, per projection;
+              the eq. 5 levels that differ, per projection; then
+              self-speculative decoding on the same packing: a draft tier
+              re-pruned to SPEC_DRAFT_SPARSITY (serve/spec.draft_serving),
+              one verify pass of k+1 tokens held bit for bit against k+1
+              one-token steps, and the trace served by the spec engine
+              with the reprune draft (k = SPEC_K) and with the layer-skip
+              draft (keep = SPEC_KEEP), and by the scan engine with a
+              recording Tracer and MetricsRegistry: tokens bit for bit
+              equal to the plain scan run's, launch counts exact from each
+              run's own SpecStats, the Chrome trace and the metrics
+              snapshot validated; then both families with a draft equal
+              to the target (the target's own packing as the reprune
+              tier, layer-skip keep = 1.0): every proposal accepted, so
+              the accepted runs, their multi-position commits and the
+              draft tier's KV after an accept are driven on the card;
   4. serve mamba2-780m - full width and depth (48 layers), bf16, MARS QAT
               w8a8, random weights from a seed, Engine.generate on 4
               prompts of 1024 tokens for 32 new tokens; the launch counts
@@ -62,13 +85,17 @@ needed. Phases (any failure exits non-zero):
               on the scan runtime with the same tokens; the legacy Engine
               over the stacked and the per-layer packing, equal tokens;
               full-width, full-depth mamba2-780m (QAT) through the Engine
-              fallback; launch counts for every run;
+              fallback; the booted artifact once more with --spec
+              draft=layerskip (no second packing), --trace-out and
+              --metrics-out, tokens equal to the booted scan run's and
+              both files validated; launch counts for every run;
   7. profile - torch.profiler over a short scan-engine run and a short
               mamba2 generate: the device's busy share and its top kernels;
   8. times  - kernel, bound, plain-version and library times per shape
-              (the block-sparse kernel at all six yi-6b rows), and the
-              per-launch device time of the block-sparse, fake_quant and
-              ssd_intra kernels.
+              (the block-sparse kernel at all six yi-6b rows, the
+              decode-attention kernel at decode and verify rows over
+              DA_VIEWS), and the per-launch device time of the
+              block-sparse, fake_quant and ssd_intra kernels.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -104,6 +131,26 @@ PROMPT_ROWS = 128  # the longest prompt of the trace: the prefill row count
 TILE = (128, 128)
 SPARSITY = 0.6
 DEV = "cuda"
+# self-speculative decoding (phase 3): draft length, the reprune draft's
+# sparsity, the layer-skip draft's kept share of sublayers; a verify pass
+# runs N_SLOTS * (SPEC_K + 1) rows through every projection
+SPEC_K = 4
+SPEC_DRAFT_SPARSITY = 0.9
+SPEC_KEEP = 0.5
+VERIFY_ROWS = N_SLOTS * (SPEC_K + 1)
+# the paged decode-attention kernel (phases 2 and 8): bf16 output within
+# DA_TOL of max |plain| (a score or a probability may round to the other
+# bf16 neighbour where the two orders of an f32 sum straddle a rounding
+# edge; tests/test_torch_decode_attention.py holds the kernel's order,
+# emulated on the CPU, to the same bar), f32 within DA_F32_TOL; views of
+# the main path's length and of serving contexts of 1k and 4k positions
+DA_TOL = 2e-2
+DA_F32_TOL = 1e-5
+DA_VIEWS = (160, 1024, 4096)
+# the paged pass's norm holds each row equal alone and in batches of 1 to
+# NORM_ROWS rows (phase 2): a verify runs N_SLOTS * (k + 1) rows, a suffix
+# prefill up to a prompt's length
+NORM_ROWS = 256
 
 # mamba2-780m serving: prompts, prompt length (4 chunks of 256), new tokens
 MAMBA_BATCH = 4
@@ -176,6 +223,9 @@ CLI_LEGACY = ["--engine", "legacy", "--batch", "4", "--prompt-len", "128",
 # config's cim_mode, so the cli phase sets it in code (see cli)
 CLI_MAMBA = ["--arch", "mamba2-780m", "--dtype", "bfloat16", "--batch", "4",
              "--prompt-len", "1024", "--new-tokens", "8"]
+# the cli phase's speculative run over the booted 32-layer artifact
+CLI_SPEC = ["--runtime", "scan", "--spec",
+            f"draft=layerskip,keep={SPEC_KEEP},k={SPEC_K}"]
 
 
 def log(*a) -> None:
@@ -188,9 +238,10 @@ def reset_launches(kern) -> None:
 
 
 def launch_counts(kern) -> dict:
-    K, FQ, SI, QM = kern
+    K, FQ, SI, QM, DA = kern
     return dict(K.LAUNCHES_BY_ENTRY, fake_quant=FQ.LAUNCHES,
-                ssd_intra_chunk=SI.LAUNCHES, quant_matmul=QM.LAUNCHES)
+                ssd_intra_chunk=SI.LAUNCHES, quant_matmul=QM.LAUNCHES,
+                decode_attention=DA.LAUNCHES)
 
 
 def mamba_launches(cfg, prefills, forwards) -> dict:
@@ -200,36 +251,165 @@ def mamba_launches(cfg, prefills, forwards) -> dict:
     prefill."""
     return {"bsr_matmul": 0, "bsr_matmul_stacked": 0,
             "fake_quant": 2 * (2 * cfg.n_layers + 1) * forwards,
-            "ssd_intra_chunk": cfg.n_layers * prefills, "quant_matmul": 0}
+            "ssd_intra_chunk": cfg.n_layers * prefills, "quant_matmul": 0,
+            "decode_attention": 0}
 
 
-def compressed_launches(cfg, engine, forwards) -> dict:
+def compressed_launches(cfg, engine, forwards, paged) -> dict:
     """The launches of ``forwards`` forwards of a compressed dense model:
     7 projections per layer and the head, each on the block-sparse kernel
     (the scan runtime's layers on the stacked entry, the head and the loop
-    runtime on the single-layer one) after eq. 5 on fake_quant."""
+    runtime on the single-layer one) after eq. 5 on fake_quant; and the
+    decode-attention kernel once a layer in each of the ``paged`` forwards
+    that attend over the KV cache (decode steps and prefix-hit suffix
+    prefills; a full prefill attends in plain torch)."""
     passes = 7 * cfg.n_layers + 1
     want = ({"bsr_matmul_stacked": 7 * cfg.n_layers * forwards,
              "bsr_matmul": forwards} if engine == "scan"
             else {"bsr_matmul_stacked": 0, "bsr_matmul": passes * forwards})
     want.update(fake_quant=passes * forwards, ssd_intra_chunk=0,
-                quant_matmul=0)
+                quant_matmul=0, decode_attention=cfg.n_layers * paged)
     return want
 
 
+def paged_passes(rep) -> int:
+    """A BatchServer run's forwards over the paged KV cache: every decode
+    step and every prefix-hit suffix prefill."""
+    return rep.n_decode_steps + rep.prefix["hits"]
+
+
+def spec_launches(cfg, rep, masks=None) -> dict:
+    """The launches of a spec-engine run, from its own SpecStats: every
+    prefill is a full forward (7 projections a layer and the head; the
+    reprune draft tier prefills too), every round a full verify forward
+    plus the draft's steps - k+1 full forwards over the draft envelope
+    (reprune), or k steps that run only the kept sublayers' projections
+    (4 for an attention, 3 for an MLP) and the head (layerskip). The
+    decode-attention kernel runs once a layer in every verify, every
+    reprune draft step and every prefix-hit suffix prefill (on both tiers
+    for reprune), and once a kept attention in every layerskip step."""
+    ks = rep.spec["round_k"]
+    hits = rep.prefix["hits"]
+    assert len(ks) == rep.spec["n_rounds"] == rep.n_decode_steps
+    if masks is None:  # reprune
+        full = 2 * rep.n_requests + sum(k + 2 for k in ks)
+        stacked, single = 7 * cfg.n_layers * full, full
+        attn = cfg.n_layers * (2 * hits + sum(k + 2 for k in ks))
+    else:
+        attn_on, mlp_on = masks
+        full = rep.n_requests + len(ks)
+        steps = sum(ks)
+        stacked = (7 * cfg.n_layers * full
+                   + (4 * sum(attn_on) + 3 * sum(mlp_on)) * steps)
+        single = full + steps
+        attn = cfg.n_layers * (hits + len(ks)) + sum(attn_on) * steps
+    return {"bsr_matmul_stacked": stacked, "bsr_matmul": single,
+            "fake_quant": stacked + single, "ssd_intra_chunk": 0,
+            "quant_matmul": 0, "decode_attention": attn}
+
+
 @contextlib.contextmanager
-def plain_kernels(kern):
-    """Every kernel wrapper swapped for its plain version (on the card),
-    every other op unchanged."""
-    K, FQ, SI, _ = kern
-    saved = K._run, FQ.fake_quant, SI.ssd_intra_chunk
+def plain_kernels(kern, attention=False):
+    """The block-sparse, fake_quant and ssd_intra wrappers swapped for their
+    plain versions (on the card), and with ``attention`` the
+    decode-attention wrapper too; every other op unchanged."""
+    K, FQ, SI, _, DA = kern
+    saved = K._run, FQ.fake_quant, SI.ssd_intra_chunk, DA.decode_attention
     K._run = lambda entry, x, *ops: K.bsr_matmul_stacked_plain(x, *ops)
     FQ.fake_quant = FQ.fake_quant_plain
     SI.ssd_intra_chunk = SI.ssd_intra_chunk_plain
+    if attention:
+        DA.decode_attention = DA.decode_attention_plain
     try:
         yield
     finally:
-        K._run, FQ.fake_quant, SI.ssd_intra_chunk = saved
+        (K._run, FQ.fake_quant, SI.ssd_intra_chunk,
+         DA.decode_attention) = saved
+
+
+def da_inputs(torch, cfg, t, sv, gen, dtype):
+    """Decode-attention inputs at yi-6b's heads: N_SLOTS rows of t query
+    tokens over views of sv positions, the rows at four depths; in a view
+    longer than a chunk of the kernel (256 keys) the first row's tokens
+    cross from its one-block form into its chunked one."""
+    q = torch.randn((N_SLOTS, t, cfg.n_heads, cfg.dh), generator=gen,
+                    device=DEV).to(dtype)
+    k, v = (torch.randn((N_SLOTS, sv, cfg.n_kv_heads, cfg.dh), generator=gen,
+                        device=DEV).to(dtype) for _ in range(2))
+    pos = torch.tensor([min(254, sv - t), sv // 3, sv // 2, sv - t],
+                       dtype=torch.int32, device=DEV)
+    return q, k, v, pos
+
+
+def check_decode_attention(torch, DA, cfg):
+    """Phase 2: the paged decode-attention kernel against its plain
+    version at yi-6b's heads over DA_VIEWS, decode (T = 1) and verify
+    (T = SPEC_K + 1) rows, bf16 within DA_TOL of max |plain| (f32 within
+    DA_F32_TOL at the main view), a sliding window and zero-padded heads
+    at the main view; every call repeated bit for bit; each verify launch
+    against T one-token launches over views cut just past each position,
+    bit for bit. Then the paged pass's norm (``layers.rmsnorm_rows`` at
+    d_model) on every row count from 1 to NORM_ROWS, each row equal to the
+    row alone; beside it, printed and not held, the first row count at
+    which the library norm (``layers.rmsnorm``) is not. Returns the
+    largest |kernel - plain|."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    DA.reset_launches()
+    n, worst = 0, 0.0
+    for dtype, tol, views in ((torch.bfloat16, DA_TOL, DA_VIEWS),
+                              (torch.float32, DA_F32_TOL, DA_VIEWS[:1])):
+        for sv in views:
+            for t in (1, SPEC_K + 1):
+                q, k, v, pos = da_inputs(torch, cfg, t, sv, gen, dtype)
+                padded = cfg.n_heads - cfg.n_kv_heads  # true heads
+                cases = [(0, 0)] + ([(64, 0), (0, padded)]
+                                    if sv == DA_VIEWS[0] else [])
+                for window, n_true in cases:
+                    got = DA.decode_attention(q, k, v, pos, window, n_true)
+                    again = DA.decode_attention(q, k, v, pos, window, n_true)
+                    n += 2
+                    assert torch.equal(got, again), (sv, t, window, n_true)
+                    want = DA.decode_attention_plain(q, k, v, pos, window,
+                                                     n_true).float()
+                    err = float((got.float() - want).abs().max())
+                    scale = max(1.0, float(want.abs().max()))
+                    assert err <= tol * scale, (dtype, sv, t, window, err)
+                    worst = max(worst, err)
+                if t > 1:
+                    full = got
+                    for ti in range(t):
+                        cut = int(pos.max()) + ti + 1
+                        one = DA.decode_attention(
+                            q[:, ti:ti + 1], k[:, :cut], v[:, :cut],
+                            pos + ti, window, n_true)
+                        n += 1
+                        assert torch.equal(one[:, 0], full[:, ti]), (sv, ti)
+                del q, k, v
+    assert DA.LAUNCHES == n, (DA.LAUNCHES, n)
+    g = torch.randn(cfg.d_model, generator=gen, device=DEV).to(
+        cfg.param_dtype)
+    x = (torch.randn((NORM_ROWS, cfg.d_model), generator=gen,
+                     device=DEV) * 3).to(cfg.param_dtype)
+    lib_first = "none"
+    for norm in (L.rmsnorm, L.rmsnorm_rows):
+        alone = torch.cat([norm(x[i:i + 1], g) for i in range(NORM_ROWS)])
+        for rows in range(1, NORM_ROWS + 1):
+            same = torch.equal(norm(x[:rows], g), alone[:rows])
+            if norm is L.rmsnorm_rows:
+                assert same, rows
+            elif not same:
+                lib_first = rows
+                break
+    log(f"[kernel] decode_attention: {n} launches at yi-6b's heads "
+        f"({cfg.n_heads} over {cfg.n_kv_heads} kv heads, dh {cfg.dh}), "
+        f"views {list(DA_VIEWS)}, T 1 and {SPEC_K + 1}, bf16 and f32: "
+        f"within tolerance of the plain version (max |diff| {worst:.4g}), "
+        f"repeats bit for bit, verify rows bit for bit equal to one-token "
+        f"launches; rmsnorm_rows at d_model {cfg.d_model}: every row equal "
+        f"alone and in batches of 1 to {NORM_ROWS} rows (the library "
+        f"rmsnorm first differs at {lib_first} rows)")
+    return worst
 
 
 def random_packing(torch, L, gi, go, bk, bn, density, gen, nnz_max=None,
@@ -308,9 +488,10 @@ def check_kernels(torch, K, Q, shapes):
 
     def run_cases(name, d_in, d_out, tile, cases, rows, kinds):
         bk, bn = tile
-        for label, nmax, poison in cases:
+        for label, nmax, poison, *density in cases:
             st = random_packing(torch, 2, d_in // bk, d_out // bn, bk, bn,
-                                0.4, gen, nnz_max=nmax, poison=poison)
+                                density[0] if density else 0.4, gen,
+                                nnz_max=nmax, poison=poison)
             own = [own_packing(st, i) for i in range(2)]
             for m in rows:
                 for kind in kinds:
@@ -337,11 +518,13 @@ def check_kernels(torch, K, Q, shapes):
 
     K.reset_launches()
     for name, d_in, d_out in shapes:
-        cases = [("", None, False)]
+        # the draft tier's density: many block columns hold 0-2 blocks
+        cases = [("", None, False),
+                 ("draft tier", None, False, 1.0 - SPEC_DRAFT_SPARSITY)]
         if name in ("wq", "w_down"):
             cases += [("poisoned", None, True), ("truncated", 3, False)]
-        run_cases(name, d_in, d_out, TILE, cases, (N_SLOTS, PROMPT_ROWS),
-                  ("eq5", "f32", "bf16"))
+        run_cases(name, d_in, d_out, TILE, cases,
+                  (N_SLOTS, VERIFY_ROWS, PROMPT_ROWS), ("eq5", "f32", "bf16"))
     aligned = dict(K.LAUNCHES_BY_PATH)
     assert aligned["single masked"] == aligned["split masked"] == 0, aligned
     K.reset_launches()
@@ -352,7 +535,10 @@ def check_kernels(torch, K, Q, shapes):
     masked = dict(K.LAUNCHES_BY_PATH)
     assert masked["single aligned"] == masked["split aligned"] == 0, masked
     log(f"[kernel] {n} comparisons within tolerance (f32 1e-5, off-grid f32 "
-        "1e-5, bf16 2e-2), each call repeated bit for bit and each layer's "
+        f"1e-5, bf16 2e-2) at rows {(N_SLOTS, VERIFY_ROWS, PROMPT_ROWS)} "
+        "(decode, speculative verify, prefill), with a draft-tier packing "
+        f"at density {1.0 - SPEC_DRAFT_SPARSITY:.1f} beside each yi-6b "
+        "shape, each call repeated bit for bit and each layer's "
         "own packing bit for bit equal to the envelope; launches by path: "
         f"yi-6b shapes {aligned}, tiles {[t for _, _, t in MASKED_TILES]} "
         f"{masked}; max |kernel - plain|: " + ", ".join(
@@ -596,7 +782,7 @@ def serve(torch, kern, cfg, sp):
         counts[engine] = launch_counts(kern)
         reports[engine] = rep
         forwards = rep.n_requests + rep.n_decode_steps  # prefills + steps
-        want = compressed_launches(cfg, engine, forwards)
+        want = compressed_launches(cfg, engine, forwards, paged_passes(rep))
         assert K.LAUNCHES == passes * forwards, (engine, K.LAUNCHES)
         assert counts[engine] == want, (engine, counts[engine], want)
         j = rep.to_json()
@@ -615,7 +801,241 @@ def serve(torch, kern, cfg, sp):
         assert (toks == loop.outputs[rid]).all(), f"{rid}: scan != loop"
     log(f"[serve] scan and loop tokens equal on all {scan.n_requests} "
         "requests")
-    return counts
+    return counts, scan
+
+
+def verify_exact(torch, kern, cfg, sxp):
+    """One verify pass of SPEC_K + 1 tokens over N_SLOTS rows against
+    SPEC_K + 1 one-token decode steps over a shorter view, on the card:
+    logits and K/V equal bit for bit (the property the accept rule stands
+    on: the decode-attention kernel takes each query row's sums in one
+    order, the norm reduces each row alone, and the block-sparse sums of
+    eq. 5 data are exact in any order). For contrast, printed and not
+    held: the same comparison with the library attention
+    (``layers.attention_scores`` over the masked, head-expanded view, as
+    the port computed it before the kernel), and a decode step's host-clock
+    time with each, taken in turns."""
+    from repro_torch.models import layers as L
+    from repro_torch.serve import stacked as ST
+    DA = kern[4]
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    t = SPEC_K + 1
+    shape = (cfg.n_layers, N_SLOTS, 160, cfg.n_kv_heads, cfg.dh)
+    vk = torch.randn(shape, generator=gen, device=DEV).to(cfg.param_dtype)
+    vv = torch.randn(shape, generator=gen, device=DEV).to(cfg.param_dtype)
+    pos = torch.tensor([3, 40, 77, 120], dtype=torch.int32, device=DEV)
+    toks = torch.randint(0, cfg.vocab, (N_SLOTS, t), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    rows = torch.arange(N_SLOTS, device=DEV)
+
+    def compare():
+        logits, ks, vs = ST.verify_step(sxp, vk, vv, pos, toks, cfg)
+        k_seq, v_seq = vk[:, :, :128].clone(), vv[:, :, :128].clone()
+        equal, diff = True, 0.0
+        for i in range(t):
+            lg, kn, vn = ST.decode_step_paged(sxp, k_seq, v_seq, pos + i,
+                                              toks[:, i:i + 1], cfg)
+            equal &= bool(torch.equal(lg, logits[:, i])
+                          and torch.equal(kn, ks[:, :, i])
+                          and torch.equal(vn, vs[:, :, i]))
+            diff = max(diff, float((lg.float() - logits[:, i].float())
+                                   .abs().max()))
+            k_seq[:, rows, (pos + i).long()] = kn.to(k_seq.dtype)
+            v_seq[:, rows, (pos + i).long()] = vn.to(v_seq.dtype)
+        return equal, diff
+
+    def step_secs(n):
+        secs = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ST.decode_step_paged(sxp, vk, vv, pos, toks[:, :1], cfg)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return secs
+
+    def library_attention(q, k, v, p, window=0, n_true=0):
+        pp = p.long()[:, None] + torch.arange(q.shape[1], device=DEV)[None]
+        kj = torch.arange(k.shape[1], device=DEV)[None, None, None, :]
+        mask = kj <= pp[:, None, :, None]
+        if window > 0:
+            mask = mask & (kj > pp[:, None, :, None] - window)
+        h = q.shape[2]
+        return L.attention_scores(q, L._expand_kv(k, h, n_true or h),
+                                  L._expand_kv(v, h, n_true or h), mask)
+
+    kernel = DA.decode_attention
+
+    def use(name):
+        DA.decode_attention = kernel if name == "kernel" else \
+            library_attention
+
+    try:
+        equal, _ = compare()
+        assert equal, "verify pass != one-token steps"
+        use("library")
+        lib_equal, lib_diff = compare()
+        # decode-step host time in turns (kernel, library, library,
+        # kernel), 20 steps a turn after 5 untimed ones
+        times = {"kernel": [], "library": []}
+        for name in ("kernel", "library", "library", "kernel"):
+            use(name)
+            step_secs(5)
+            times[name] += step_secs(20)
+    finally:
+        use("kernel")
+    step_ms = statistics.median(times["kernel"]) * 1e3
+    lib_ms = statistics.median(times["library"]) * 1e3
+    log(f"[spec] verify pass of {t} tokens x {N_SLOTS} rows ({VERIFY_ROWS} "
+        f"rows a projection) over a 160-position view equals {t} one-token "
+        f"steps over a 128-position view, logits and K/V bit for bit; "
+        f"decode step {step_ms:.3f} ms (host clock, median of 40 taken in "
+        f"turns). With the library attention: equal {lib_equal}, max "
+        f"|logit diff| {lib_diff:.4g}, decode step {lib_ms:.3f} ms")
+
+
+def serve_spec(torch, kern, cfg, sp, scan, card):
+    """Phase 3, speculative part: a draft tier re-pruned to
+    SPEC_DRAFT_SPARSITY, the verify exactness check, then the trace through
+    the spec engine (reprune and layerskip drafts) and through an
+    instrumented scan engine. Each run is driven with the launch counts at
+    0 and read after; tokens must equal the plain scan run's bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.obs import (MetricsRegistry, Tracer,
+                                 validate_chrome_trace_file,
+                                 validate_metrics_snapshot)
+    from repro_torch.serve import BatchConfig, BatchServer, Request
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve import spec as SPM
+    from repro_torch.serve import stacked as ST
+    t0 = time.perf_counter()
+    draft = SPM.draft_serving(cfg, sp, SPEC_DRAFT_SPARSITY)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    dens = [dw.density for dw in draft.deployed().values()]
+    log(f"[spec] draft tier re-pruned to sparsity {SPEC_DRAFT_SPARSITY} in "
+        f"{pack_s:.1f} s (host); compression_x "
+        f"{draft.report()['compression_x']:.3f} (target "
+        f"{sp.report()['compression_x']:.3f}); block density per projection "
+        f"{min(dens):.4f}-{max(dens):.4f}")
+    verify_exact(torch, kern, cfg, ST.stack(sp))
+    bcfg = BatchConfig(n_slots=N_SLOTS, block_size=16, n_blocks=96)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    # the agreeing drafts: a budget of AGREE_NEW tokens (1 + 5 + 5 + 3 at
+    # k = 4: the last round is cut by the budget), and an EOS id for the
+    # layer-skip run, the plain scan run's token at position 6 of r0 (a
+    # run is cut at EOS where one is emitted)
+    agree_new = 14
+    eos = int(scan.outputs["r0"][6])
+    spec = lambda **kw: SPM.SpecConfig(k=SPEC_K, **kw)
+    cases = {
+        "reprune": dict(engine="spec", draft=draft, spec=spec(
+            draft_sparsity=SPEC_DRAFT_SPARSITY)),
+        "layerskip": dict(engine="spec", spec=spec(draft="layerskip",
+                                                   keep=SPEC_KEEP)),
+        "scan traced": dict(engine="scan", tracer=Tracer(),
+                            metrics=MetricsRegistry()),
+        "reprune agree": dict(engine="spec", draft=sp, spec=spec(
+            draft_sparsity=SPARSITY)),
+        "layerskip agree": dict(engine="spec", scfg=ServeConfig(eos_id=eos),
+                                spec=spec(draft="layerskip", keep=1.0))}
+    counts, runs = {}, {}
+    try:
+        for label, kw in cases.items():
+            agree = label.endswith("agree")
+            srv = BatchServer(cfg, sp, bcfg=bcfg, device=DEV, **kw)
+            srv.run(make_trace(Request, cfg.vocab, seed=9)[:1])  # warm-up
+            if label == "scan traced":
+                srv.tracer.clear()
+                srv.metrics.clear()
+                srv.timer.clear()
+            trace = make_trace(Request, cfg.vocab)
+            if agree:
+                for r in trace:
+                    r.max_new_tokens = agree_new
+            torch.cuda.synchronize()
+            reset_launches(kern)
+            t0 = time.perf_counter()
+            rep = srv.run(trace)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts[f"spec {label}"] = got = launch_counts(kern)
+            runs[label] = rep
+            for rid, toks in scan.outputs.items():
+                if agree:  # the plain scan run's tokens, cut where this
+                    toks = toks[:agree_new]  # run's budget or EOS cuts
+                    if srv.scfg.eos_id in toks:
+                        toks = toks[: list(toks).index(srv.scfg.eos_id) + 1]
+                assert (rep.outputs[rid] == toks).all(), \
+                    f"{label} {rid}: tokens != the plain scan run's"
+            if agree:
+                # the draft is the target bit for bit: every proposal
+                # agrees, so a slot-round accepts its whole run unless the
+                # budget or EOS cuts it; from each request's own output
+                proposed = accepted = 0
+                for toks in rep.outputs.values():
+                    done = 1  # the prefill's token
+                    while done < len(toks):
+                        e = min(SPEC_K + 1, len(toks) - done)
+                        proposed += SPEC_K
+                        accepted += min(SPEC_K, e - 1)
+                        done += e
+                j = rep.spec
+                assert (j["proposed"], j["accepted"]) == (proposed,
+                                                          accepted), j
+                assert set(j["round_k"]) == {SPEC_K}, j["round_k"]
+            if label == "scan traced":
+                forwards = rep.n_requests + rep.n_decode_steps
+                want = compressed_launches(cfg, "scan", forwards,
+                                           paged_passes(rep))
+                path = os.path.join(tmp, "trace.json")
+                srv.tracer.save(path)
+                n_ev = validate_chrome_trace_file(path)
+                snap = json.loads(json.dumps(rep.metrics))
+                n_inst = validate_metrics_snapshot(snap)
+                names = {e["name"] for e in srv.tracer.events}
+                phases = {"prefill", "step.admit", "decode_step",
+                          "step.gather", "step.dispatch", "step.writeback",
+                          "step.sample"}
+                assert phases <= names, phases - names
+                disp = snap["kernel_dispatch"][0]
+                assert disp["backend"] == torch.device(DEV).type, disp
+                log(f"[spec] scan with Tracer + MetricsRegistry: tokens "
+                    f"equal the plain scan run's on all {rep.n_requests} "
+                    f"requests; tokens_per_s {rep.tokens_per_s:.2f} "
+                    f"(plain {scan.tokens_per_s:.2f}); Chrome trace "
+                    f"{n_ev} events valid, metrics snapshot {n_inst} "
+                    f"instruments valid; decode dispatch p50 "
+                    f"{disp['p50_ms']} ms over {disp['calls']} steps; "
+                    f"prefix_hits {snap['counters'].get('prefix_hits')}; "
+                    f"launches {got} ({card})")
+            else:
+                masks = srv.spec_masks
+                want = spec_launches(cfg, rep, masks)
+                j = rep.spec
+                log(f"[spec] engine=spec draft={label} k={SPEC_K}"
+                    + (f" masks attn={list(masks[0])} mlp={list(masks[1])}"
+                       if masks else
+                       f" draft_sparsity={j['draft_sparsity']}")
+                    + (f" budget {agree_new} eos_id {srv.scfg.eos_id}: "
+                       f"every proposal accepted but where the budget or "
+                       f"EOS cuts ({j['accepted']} of {j['proposed']})"
+                       if agree else "")
+                    + f": tokens equal the plain scan run's on all "
+                    f"{rep.n_requests} requests; acceptance_rate "
+                    f"{j['acceptance_rate']} tokens_per_verify "
+                    f"{j['tokens_per_verify']} rounds {j['n_rounds']} "
+                    f"round_p50_ms {j['round_p50_ms']} draft_p50_ms "
+                    f"{j.get('draft_p50_ms')} verify_p50_ms "
+                    f"{j.get('verify_p50_ms')} tokens_per_s "
+                    f"{rep.tokens_per_s:.2f} (scan {scan.tokens_per_s:.2f})"
+                    f" wall_s {secs:.3f}; round k {j['round_k']}; launches "
+                    f"{got} ({card})")
+            assert got == want, (label, got, want)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, draft
 
 
 def plain_path_agreement(torch, kern, cfg, sp, sxp):
@@ -625,20 +1045,34 @@ def plain_path_agreement(torch, kern, cfg, sp, sxp):
     projections' f32 sums are exact here (eq. 5 activations and int8 levels
     are multiples of 2^-7, their products of 2^-14, and no partial sum
     nears 2^10), so the order of summation cannot show, every other op is
-    the same torch op, and the logits must agree. Then the same packing
-    on the CPU (``card_vs_cpu``)."""
+    the same torch op (the decode step's attention on its kernel on both
+    sides), and the logits must agree. Then the decode-attention kernel
+    swapped too, printed and not held: its bf16 scores and probabilities
+    round differently from its plain version's where their f32 sums,
+    taken in other orders, straddle a rounding edge (phase 2 holds the
+    kernel to DA_TOL), and four bf16 layers carry that into the logits;
+    greedy tokens by the margin rule. Then the same packing on the CPU
+    (``card_vs_cpu``)."""
     from repro_torch.serve import parity as PA
     toks = torch.randint(0, cfg.vocab, (1, 32), device=DEV,
                          generator=torch.Generator(device=DEV).manual_seed(3))
     loop, scan = (PA.prefill_and_step(p, toks, 29, cfg) for p in (sp, sxp))
     with plain_kernels(kern):
         plain = PA.prefill_and_step(sp, toks, 29, cfg)
+    with plain_kernels(kern, attention=True):
+        plain_all = PA.prefill_and_step(sp, toks, 29, cfg)
     assert loop.shape == (2, cfg.vocab) and torch.isfinite(loop).all()
     assert torch.equal(loop, scan)
     diff = float((loop - plain).abs().max())
+    diff_all = (loop.float() - plain_all.float()).abs().max(-1).values
+    rule = PA.greedy_margins(loop, plain_all, MARGIN_TOL)
     log(f"[serve] prefill + decode logits, kernel path vs plain path on the "
         f"card: max |diff| {diff:.3e} (max |logit| "
-        f"{float(plain.abs().max()):.3e}); loop == scan")
+        f"{float(plain.abs().max()):.3e}); loop == scan. With the "
+        f"decode-attention kernel swapped too: max |diff| prefill "
+        f"{float(diff_all[0]):.4e}, decode {float(diff_all[1]):.4e}; greedy "
+        f"tokens {rule['equal']}/{rule['rows']} equal, divergences (row, "
+        f"margin) {rule['differ']}")
     assert diff <= 1e-3, diff
     card_vs_cpu(torch, cfg, sp, toks, loop)
 
@@ -961,6 +1395,7 @@ def cli(torch, kern, card):
     def run(self, requests):
         rep = orig["run"][1](self, requests)
         rec["reports"].append(rep)
+        rec["masks"] = self.spec_masks
         return rep
 
     D.deploy_weight = deploy_weight
@@ -995,7 +1430,8 @@ def cli(torch, kern, card):
                         yi + CLI_BATCH + ["--runtime", runtime])
             forwards = sum(r.n_requests + r.n_decode_steps
                            for r in rec["reports"])
-            want = compressed_launches(cfg, runtime, forwards)
+            want = compressed_launches(cfg, runtime, forwards, sum(
+                paged_passes(r) for r in rec["reports"]))
             got = counts[f"cli yi-6b batch {runtime}"]
             assert got == want, (runtime, got, want)
             packs = 7 * cfg.n_layers + 1 if runtime == "loop" else 0
@@ -1040,12 +1476,46 @@ def cli(torch, kern, card):
             f"({7 * cfg.n_layers + 1} projections: int8 blocks, row_idx, "
             f"nnz, scales; embed and norms); scan tokens equal loop tokens "
             f"on all {batch['loop'].n_requests} requests")
+        from repro_torch.obs import (validate_chrome_trace_file,
+                                     validate_metrics_snapshot)
+        trace_out = os.path.join(tmp, "trace.json")
+        metrics_out = os.path.join(tmp, "metrics.json")
+        rep = drive("yi-6b batch spec layerskip",
+                    yi + CLI_BATCH + CLI_SPEC + ["--trace-out", trace_out,
+                                                 "--metrics-out",
+                                                 metrics_out])
+        rec.pop("booted")
+        got = counts["cli yi-6b batch spec layerskip"]
+        want = {}
+        for r in rec["reports"]:  # warm-up and measured runs
+            for key, n in spec_launches(cfg, r, rec["masks"]).items():
+                want[key] = want.get(key, 0) + n
+        assert got == want, (got, want)
+        assert rec["deploy_weight"] == 0
+        for rid, toks in batch["scan"].outputs.items():
+            assert (rep.outputs[rid] == toks).all(), \
+                f"{rid}: --spec tokens != the booted scan run's"
+        n_ev = validate_chrome_trace_file(trace_out)
+        with open(metrics_out) as f:
+            n_inst = validate_metrics_snapshot(json.load(f))
+        j = rep.spec
+        log(f"[cli] yi-6b batch spec layerskip: boot_s "
+            f"{rec['secs']['boot']:.2f} deploy_weight 0; tokens equal the "
+            f"booted scan run's on all {rep.n_requests} requests; masks "
+            f"attn={list(rec['masks'][0])} mlp={list(rec['masks'][1])}; "
+            f"acceptance_rate {j['acceptance_rate']} tokens_per_verify "
+            f"{j['tokens_per_verify']} rounds {j['n_rounds']} round_p50_ms "
+            f"{j['round_p50_ms']} tokens_per_s {rep.tokens_per_s:.2f} "
+            f"(scan {batch['scan'].tokens_per_s:.2f}); --trace-out "
+            f"{n_ev} events and --metrics-out {n_inst} instruments valid; "
+            f"launches {got} ({card})")
         legacy = {}
         for runtime in ("scan", "loop"):
             out = drive(f"yi-6b legacy {runtime}",
                         yi + CLI_LEGACY + ["--runtime", runtime])
             new = int(CLI_LEGACY[CLI_LEGACY.index("--new-tokens") + 1])
-            want = compressed_launches(cfg, runtime, new + 1)
+            # one prefill and ``new`` decode steps over the contiguous cache
+            want = compressed_launches(cfg, runtime, new + 1, new)
             got = counts[f"cli yi-6b legacy {runtime}"]
             assert got == want, (runtime, got, want)
             assert rec["deploy_weight"] == 0
@@ -1125,7 +1595,27 @@ def profile_serve(torch, cfg, sp):
     profile_run(torch, "yi-6b scan serve", lambda: {
         "decode_steps": srv.run(reqs).n_decode_steps},
         {"bsr_kernel": "bsr_matmul_kernel", "bsr_reduce": "bsr_split_reduce",
-         "bsr_copy": "bsr_x_to_bf16", "fake_quant_kernel": "fake_quant"})
+         "bsr_copy": "bsr_x_to_bf16", "fake_quant_kernel": "fake_quant",
+         "decode_attention_kernel": "decode_attention"})
+
+
+def profile_spec(torch, cfg, sp, draft):
+    """A spec-engine serve run of 4 requests (reprune draft)."""
+    from repro_torch.serve import BatchConfig, BatchServer, Request
+    from repro_torch.serve import spec as SPM
+    srv = BatchServer(cfg, sp, engine="spec", device=DEV, draft=draft,
+                      spec=SPM.SpecConfig(k=SPEC_K,
+                                          draft_sparsity=SPEC_DRAFT_SPARSITY),
+                      bcfg=BatchConfig(n_slots=N_SLOTS, block_size=16,
+                                       n_blocks=96))
+    reqs = make_trace(Request, cfg.vocab, seed=5)[:N_SLOTS]
+    srv.run(reqs[:1])  # warm-up
+    torch.cuda.synchronize()
+    profile_run(torch, "yi-6b spec (reprune) serve", lambda: {
+        "rounds": srv.run(reqs).spec["n_rounds"]},
+        {"bsr_kernel": "bsr_matmul_kernel", "bsr_reduce": "bsr_split_reduce",
+         "bsr_copy": "bsr_x_to_bf16", "fake_quant_kernel": "fake_quant",
+         "decode_attention_kernel": "decode_attention"})
 
 
 def profile_mamba(torch, cfg, params):
@@ -1246,6 +1736,53 @@ def times(torch, K, Q, sp, stacked):
     return rows
 
 
+def times_decode_attention(torch, DA, cfg):
+    """Phase 8: the decode-attention kernel at decode and verify rows over
+    DA_VIEWS, bf16. Bound: q read and the output written once, and the K
+    and V rows each slot's queries attend (positions 0 to its deepest
+    query) read once, over the HBM rate; or 4 dh FLOPs per (query row,
+    attended key) at the bf16 tensor-core rate. Library: one
+    scaled_dot_product_attention over the same inputs, the KV heads
+    expanded to the query heads and the causal mask made ahead."""
+    F = torch.nn.functional
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    rows = []
+    for sv in DA_VIEWS:
+        for t, label in ((1, "decode"), (SPEC_K + 1, "verify")):
+            q, k, v, pos = da_inputs(torch, cfg, t, sv, gen, torch.bfloat16)
+            pe = pos.long()[:, None] + torch.arange(t, device=DEV)[None]
+            keys = int((pe + 1).sum()) * cfg.n_heads  # (row, key) pairs
+            kv_rows = int(pe.max(dim=1).values.add(1).sum())
+            nbytes = (2 * q.numel() * 2 + pos.numel() * 4
+                      + 2 * kv_rows * cfg.n_kv_heads * cfg.dh * 2)
+            b_ms, b_by = bound_ms(nbytes, 4 * cfg.dh * keys,
+                                  BF16_TC_FLOPS_PER_S)
+            grp = cfg.n_heads // cfg.n_kv_heads
+            kh, vh = (a.repeat_interleave(grp, dim=2).transpose(1, 2)
+                      for a in (k, v))
+            qh = q.transpose(1, 2)
+            kj = torch.arange(sv, device=DEV)[None, None, None, :]
+            mask = kj <= pe[:, None, :, None]
+            row = {"shape": f"decode_attention {label} {sv}",
+                   "entry": "decode_attention", "B": N_SLOTS, "T": t,
+                   "Sv": sv, "H": cfg.n_heads, "KV": cfg.n_kv_heads,
+                   "dh": cfg.dh, "attended_pairs": keys,
+                   "kernel_ms": time_ms(torch, lambda: DA.decode_attention(
+                       q, k, v, pos), flush),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "plain_ms": time_ms(
+                       torch, lambda: DA.decode_attention_plain(q, k, v, pos),
+                       flush, iters=5, warm=1),
+                   "library_ms": time_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           qh, kh, vh, attn_mask=mask), flush)}
+            rows.append(row)
+            log(json.dumps(row))
+            del q, k, v, kh, vh, qh
+    return rows
+
+
 def times_mamba(torch, kern, cfg, params):
     """Phase 8: fake_quant as the QAT path calls it, on the in_proj input at
     prefill and decode (bf16 in and out) and on the in_proj weight (each
@@ -1254,7 +1791,7 @@ def times_mamba(torch, kern, cfg, params):
     event times, each kernel's mean device time per launch
     (``device_ms``)."""
     from repro_torch.core import quant as Q
-    _, FQ, SI, _ = kern
+    _, FQ, SI, _, _ = kern
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(6)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1375,6 +1912,7 @@ def main() -> int:
     from repro_torch.core import quant as Q
     from repro_torch.kernels import _build
     from repro_torch.kernels import cim_bsr_matmul as K
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import fake_quant as FQ
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels import ssd_intra as SI
@@ -1407,12 +1945,13 @@ def main() -> int:
               ("w_gate", cfg.d_model, cfg.d_ff),
               ("w_down", cfg.d_ff, cfg.d_model),
               ("head", cfg.d_model, cfg.vocab)]
-    kern = (K, FQ, SI, QM)
+    kern = (K, FQ, SI, QM, DA)
     mcfg = registry.get_config("mamba2-780m", cim_mode="qat")
     max_err = check_kernels(torch, K, Q, shapes)
     max_err["fake_quant"] = check_fake_quant(torch, FQ)
     max_err["ssd_intra_chunk"] = check_ssd_intra(torch, SI, mcfg)
     max_err["quant_matmul"] = check_quant_matmul(torch, QM)
+    max_err["decode_attention"] = check_decode_attention(torch, DA, cfg)
 
     log(f"[serve] yi-6b at full width ({cfg.d_model} wide, {cfg.n_heads}/"
         f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
@@ -1427,9 +1966,11 @@ def main() -> int:
     log(f"[serve] compress {time.perf_counter() - t0:.1f} s; tile "
         f"{sp.head.tile}; compression_x {report['compression_x']:.3f}; "
         f"head density {sp.head.density:.3f}")
-    counts = serve(torch, kern, cfg, sp)
+    counts, scan = serve(torch, kern, cfg, sp)
     sxp = ST.stack(sp)
     plain_path_agreement(torch, kern, cfg, sp, sxp)
+    spec_counts, draft = serve_spec(torch, kern, cfg, sp, scan, card)
+    counts.update(spec_counts)
 
     log(f"[mamba] mamba2-780m at full width and depth ({mcfg.n_layers} "
         f"layers, d_model {mcfg.d_model}, d_inner {mcfg.d_inner}, "
@@ -1447,23 +1988,31 @@ def main() -> int:
     counts.update(cli(torch, kern, card))
 
     profile_serve(torch, cfg, sp)
+    profile_spec(torch, cfg, sp, draft)
+    del draft
     profile_mamba(torch, mcfg, mparams)
     rows = (times(torch, K, Q, sp, sxp)
             + times_mamba(torch, kern, mcfg, mparams)
-            + times_quant_matmul(torch, QM, cfg, mlp, bench))
+            + times_quant_matmul(torch, QM, cfg, mlp, bench)
+            + times_decode_attention(torch, DA, cfg))
     pick = {"bsr_matmul_stacked": "w_gate decode", "bsr_matmul": "head decode",
             "fake_quant": "fake_quant act prefill",
             "ssd_intra_chunk": "ssd_intra serve",
-            "quant_matmul": "quant_matmul w_gate decode"}
+            "quant_matmul": "quant_matmul w_gate decode",
+            "decode_attention": f"decode_attention decode {DA_VIEWS[0]}"}
     source = {"bsr_matmul_stacked": "bsr_matmul.cu",
               "bsr_matmul": "bsr_matmul.cu", "fake_quant": "fake_quant.cu",
               "ssd_intra_chunk": "ssd_intra.cu",
-              "quant_matmul": "quant_matmul.cu"}
+              "quant_matmul": "quant_matmul.cu",
+              "decode_attention": "decode_attention.cu"}
     replaces = {"bsr_matmul": "src/repro/kernels/cim_bsr_matmul.py:83",
                 "bsr_matmul_stacked": "src/repro/kernels/cim_bsr_matmul.py:138",
                 "fake_quant": "src/repro/kernels/fake_quant.py:28",
                 "ssd_intra_chunk": "src/repro/kernels/ssd_intra.py:47",
-                "quant_matmul": "src/repro/kernels/quant_matmul.py:40"}
+                "quant_matmul": "src/repro/kernels/quant_matmul.py:40",
+                # no Pallas kernel: the reference's XLA attention of the
+                # paged pass (decode_attention_multi)
+                "decode_attention": "src/repro/models/layers.py:281"}
     kernels = []
     for entry in pick:
         row = next(r for r in rows if r["shape"] == pick[entry])

@@ -1,5 +1,6 @@
 """Kernel-facing helpers: deployment packing, the BSR matmul entry points
-over packed dicts, and the fake-quant and dense int8 matmul entry points."""
+over packed dicts, and the fake-quant, dense int8 matmul and paged
+decode-attention entry points."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +10,8 @@ import torch
 
 from ..core.mapping import pack_bsr
 from . import cim_bsr_matmul, fake_quant as _fq, quant_matmul as _qm
+from . import decode_attention as _da
+from .decode_attention import row_sum  # noqa: F401  (the norms' row sums)
 
 
 def pack_for_kernel(w_q: torch.Tensor, bits: int, bk: int = 128,
@@ -62,3 +65,12 @@ def quant_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor
     w_int8) * scale`` with a per-output-channel f32 scale applied after the
     K sum, f32 out, on the kernel."""
     return _qm.quant_matmul(x, w_int8, scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, window: int = 0, n_true: int = 0
+                     ) -> torch.Tensor:
+    """Attention of the paged decode / verify pass on its kernel: query
+    rows (B, T, H, dh) at positions ``pos[b] + t`` over the views (B, Sv,
+    KV, dh), each row's sums in one order whatever T and Sv."""
+    return _da.decode_attention(q, k, v, pos, window, n_true)

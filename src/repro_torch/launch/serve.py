@@ -18,6 +18,21 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
       --compressed --tile 16x16 --artifact /path/to/yi6b-artifact
 
+  # self-speculative decode: a 0.9-sparsity draft packing of the SAME
+  # weights proposes 4 tokens per target verify (greedy tokens equal
+  # target-only decode), or a layer-skip draft over the target's own
+  # envelope (no second packing)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --compressed --tile 16x16 --spec k=4,draft_sparsity=0.9
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --compressed --tile 16x16 --spec draft=layerskip,keep=0.5,k=4
+
+  # instrumented serve: Perfetto-loadable trace + metrics snapshot of the
+  # measured (post-warm-up) run
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --compressed --tile 16x16 --runtime scan \\
+      --trace-out /tmp/serve-trace.json --metrics-out /tmp/serve-metrics.json
+
   # static-batch Engine (dense and ssm families)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
       --smoke --engine legacy --batch 4 --prompt-len 16 --new-tokens 32
@@ -26,12 +41,13 @@ The subset of ``repro.launch.serve`` whose modules are ported, with the
 same defaults and the same numpy-seeded traces and prompts. Weights come
 from a ``torch.Generator`` seeded by ``--seed`` (other numbers than
 ``jax.random``'s), or from ``--artifact``. Not ported yet, so argparse
-refuses them: ``--spec``, ``--parity-check``, ``--mesh``, ``--autotune``,
-``--trace-out``, ``--metrics-out``, ``--profile``, ``--gateway``,
-``--gateway-parity-check``, ``--prefill-chunk``, ``--prefill-device``,
-``--max-backlog-s``, ``--max-pending``. ``--compressed`` needs ``--tile``:
-the schedule search that picks a tile otherwise is not ported. Beside the
-reference's flags: ``--device`` (default cuda).
+refuses them: ``--parity-check``, ``--mesh``, ``--autotune``,
+``--profile``, ``--gateway``, ``--gateway-parity-check``,
+``--prefill-chunk``, ``--prefill-device``, ``--max-backlog-s``,
+``--max-pending``. ``--spec auto`` exits with a message: the schedule
+search that picks its family, k and knob is not ported, so ``--spec``
+takes explicit values. ``--compressed`` needs ``--tile`` for the same
+reason. Beside the reference's flags: ``--device`` (default cuda).
 """
 from __future__ import annotations
 
@@ -45,8 +61,10 @@ import torch
 
 from ..device import resolve_device
 from ..models import registry
+from ..obs import MetricsRegistry, Tracer
 from ..serve import (BatchConfig, BatchServer, Engine, Request, ServeConfig,
                      deployed, stacked)
+from ..serve import spec as spec_mod
 
 
 def _sync(dev: torch.device) -> None:
@@ -120,16 +138,58 @@ def _parse_tile(spec):
     return (int(bk), int(bn))
 
 
-def _serving_params(args, cfg, init, dev) -> deployed.ServingParams:
+def _parse_spec(arg):
+    """'k=4,draft_sparsity=0.9' or 'draft=layerskip,keep=0.5,k=4' ->
+    SpecConfig; '' -> None (no speculation)."""
+    if not arg:
+        return None
+    if arg == "auto":
+        raise SystemExit(
+            "--spec auto picks the draft family, k and knob with the "
+            "schedule search (sched/, ROADMAP A10), which is not ported yet; "
+            "pass them explicitly, e.g. --spec k=4,draft_sparsity=0.9")
+    usage = (f"--spec expects comma-joined k=INT, draft=reprune|layerskip, "
+             f"draft_sparsity=FLOAT, keep=FLOAT, adaptive_k=0|1, got {arg!r}")
+    kw = {}
+    for part in arg.split(","):
+        key, _, val = part.partition("=")
+        key = key.strip()
+        try:
+            if key == "k":
+                kw["k"] = int(val)
+            elif key == "draft_sparsity":
+                kw["draft_sparsity"] = float(val)
+            elif key == "draft":
+                kw["draft"] = val.strip()
+            elif key == "keep":
+                kw["keep"] = float(val)
+            elif key == "adaptive_k":
+                kw["adaptive_k"] = bool(int(val))
+            else:
+                raise SystemExit(usage)
+        except ValueError:
+            raise SystemExit(usage) from None
+    try:
+        return spec_mod.SpecConfig(**kw)
+    except ValueError as e:
+        raise SystemExit(f"--spec: {e}") from None
+
+
+def _serving_params(args, cfg, init, dev, spec_cfg=None):
     """Boot the serving weights from ``--artifact`` when it holds one (no
     re-packing, no random init), else build them from ``init()`` - packed
-    with ``--tile`` under ``--compressed`` - and save them there. A stored
-    draft tier is left unused: speculative decoding is not ported."""
+    with ``--tile`` under ``--compressed`` - and save them there. Returns
+    (target, draft-or-None, spec_cfg). With a reprune ``spec_cfg`` the
+    draft tier rides the same artifact (two-tier): a single-tier artifact
+    is upgraded in place (the draft re-packed from the STORED target, then
+    re-saved with its manifest extra kept). A stored draft tier is served
+    AS STORED: if its sparsity differs from the requested one, the returned
+    spec_cfg adopts the stored value so the report names what was served."""
     if args.artifact:
         t0 = time.perf_counter()
         try:
-            sp, _, meta = deployed.load_artifact_tiers(args.artifact,
-                                                       device=dev)
+            sp, draft, meta = deployed.load_artifact_tiers(args.artifact,
+                                                           device=dev)
         except FileNotFoundError:
             sp = None
         if sp is not None:
@@ -146,7 +206,31 @@ def _serving_params(args, cfg, init, dev) -> deployed.ServingParams:
             print(f"artifact: loaded {args.artifact} "
                   f"(arch={meta.get('arch')}, no re-packing) in "
                   f"{time.perf_counter() - t0:.2f}s")
-            return sp
+            if spec_cfg is None or spec_cfg.draft == "layerskip":
+                # the layerskip family drafts with a sublayer subset of the
+                # TARGET envelope: no second packing to load or build
+                return sp, None, spec_cfg
+            if draft is not None:
+                stored = meta.get("draft_sparsity")
+                if stored is not None and stored != spec_cfg.draft_sparsity:
+                    print(f"note: artifact's draft tier was packed at "
+                          f"sparsity {stored}, not the requested "
+                          f"{spec_cfg.draft_sparsity} - serving it as "
+                          "stored (point --artifact at a fresh directory "
+                          "to re-pack)")
+                    spec_cfg = dataclasses.replace(
+                        spec_cfg, draft_sparsity=float(stored))
+                return sp, draft, spec_cfg
+            t0 = time.perf_counter()
+            draft = spec_mod.draft_serving(cfg, sp, spec_cfg.draft_sparsity,
+                                           tile=_parse_tile(args.tile))
+            out = deployed.save_artifact(
+                args.artifact, sp, cfg, draft=draft,
+                extra={**meta, "draft_sparsity": spec_cfg.draft_sparsity})
+            print(f"artifact: upgraded to two-tier (draft packed at "
+                  f"sparsity {spec_cfg.draft_sparsity}) at {out} in "
+                  f"{time.perf_counter() - t0:.2f}s")
+            return sp, draft, spec_cfg
     tile = _parse_tile(args.tile)
     if args.compressed and tile is None:
         raise SystemExit(
@@ -157,32 +241,59 @@ def _serving_params(args, cfg, init, dev) -> deployed.ServingParams:
     sp = (deployed.compress(cfg, params, target_sparsity=args.target_sparsity,
                             tile=tile)
           if args.compressed else deployed.from_params(cfg, params))
+    draft = None
+    if spec_cfg is not None and spec_cfg.draft == "reprune":
+        draft = spec_mod.draft_serving(cfg, sp, spec_cfg.draft_sparsity,
+                                       tile=tile)
     _sync(dev)
     print(f"packed in {time.perf_counter() - t0:.2f}s")
     if args.artifact:
         t0 = time.perf_counter()
-        out = deployed.save_artifact(args.artifact, sp, cfg,
-                                     extra={"compressed": args.compressed})
+        extra = {"compressed": args.compressed}
+        if draft is not None:
+            extra["draft_sparsity"] = spec_cfg.draft_sparsity
+        out = deployed.save_artifact(args.artifact, sp, cfg, draft=draft,
+                                     extra=extra)
         print(f"artifact: packed + saved to {out} in "
               f"{time.perf_counter() - t0:.2f}s")
-    return sp
+    return sp, draft, spec_cfg
 
 
 def _batch(args, cfg, init, dev):
-    sp = _serving_params(args, cfg, init, dev)
+    spec_cfg = _parse_spec(args.spec)
+    sp, draft, spec_cfg = _serving_params(args, cfg, init, dev, spec_cfg)
     if args.compressed:
         print("compression:", json.dumps(sp.report()))
+    if spec_cfg is not None and spec_cfg.draft == "layerskip":
+        print(f"spec: layerskip draft over the target envelope, "
+              f"keep={spec_cfg.keep}, k={spec_cfg.k} (no second packing)")
+    elif spec_cfg is not None:
+        print(f"spec: draft tier packed at sparsity "
+              f"{spec_cfg.draft_sparsity} "
+              f"({json.dumps(draft.report())}), k={spec_cfg.k}")
     bcfg = BatchConfig(n_slots=args.slots, block_size=args.block_size,
                        n_blocks=args.kv_blocks,
                        prefix_cache=not args.no_prefix_cache)
-    print(f"runtime: {args.runtime}"
+    engine = "spec" if spec_cfg is not None else args.runtime
+    print(f"runtime: {engine}"
           + {"scan": " (layer-indexed kernels over the stacked envelope, "
                      "the layer id on the card)",
-             "loop": " (python loop over per-layer weights)"}[args.runtime])
+             "loop": " (python loop over per-layer weights)",
+             "spec": " (draft-k-verify speculative decode over the stacked "
+                     "envelope, greedy-exact)"}[engine])
     scfg = ServeConfig(temperature=args.temperature, seed=args.seed)
+    tracer = Tracer() if args.trace_out else None
+    metrics = (MetricsRegistry()
+               if args.metrics_out or args.trace_out else None)
     srv = BatchServer(cfg, sp, scfg, bcfg,
-                      continuous=(args.engine == "batch"),
-                      engine=args.runtime, device=dev)
+                      continuous=(args.engine == "batch"), engine=engine,
+                      device=dev, draft=draft, spec=spec_cfg, tracer=tracer,
+                      metrics=metrics)
+    if spec_cfg is not None and spec_cfg.draft == "layerskip":
+        a_on, m_on = srv.spec_masks
+        print(f"spec: layerskip masks attn={list(a_on)} mlp={list(m_on)} "
+              f"(executes {spec_mod.kept_fraction(a_on, m_on):.2f} of the "
+              "sublayer units; nnz-ranked importance)")
     if args.shared_prefix > 0:
         # align the shared span up to a block multiple: the trie matches in
         # whole blocks
@@ -195,6 +306,13 @@ def _batch(args, cfg, init, dev):
         trace = lambda: synthetic_trace(cfg, args.requests, args.prompt_len,
                                         args.new_tokens, seed=args.seed)
     srv.run(trace())  # warm-up: kernel libraries, allocator
+    # the warm-up's spans and samples are start-up noise: drop them (the
+    # tracer keeps its epoch and track names)
+    if tracer is not None:
+        tracer.clear()
+    if metrics is not None:
+        metrics.clear()
+    srv.timer.clear()
     rep = srv.run(trace())
     out = rep.to_json()
     if args.prefix_parity_check and rep.prefix is not None:
@@ -202,14 +320,23 @@ def _batch(args, cfg, init, dev):
         # OFF must emit identical tokens over the same trace
         ref = BatchServer(cfg, sp, scfg,
                           dataclasses.replace(bcfg, prefix_cache=False),
-                          continuous=(args.engine == "batch"),
-                          engine=args.runtime, device=dev).run(trace())
+                          continuous=(args.engine == "batch"), engine=engine,
+                          device=dev, draft=draft,
+                          spec=spec_cfg).run(trace())
         out["tokens_match_unshared"] = bool(all(
             np.array_equal(rep.outputs[r.rid], ref.outputs[r.rid])
             for r in trace()))
     print(json.dumps(out, indent=1))
     for rid in list(rep.outputs)[:3]:
         print(f"  {rid}:", rep.outputs[rid].tolist())
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"trace: {len(tracer.to_chrome()['traceEvents'])} events -> "
+              f"{args.trace_out} (open in Perfetto / chrome://tracing)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(rep.metrics or {}, f, indent=1)
+        print(f"metrics: snapshot -> {args.metrics_out}")
     return rep
 
 
@@ -230,12 +357,27 @@ def main(argv=None):
                     help="loop = python loop over per-layer weights; scan = "
                     "layer-indexed kernels over the stacked uniform envelope "
                     "(identical tokens)")
+    ap.add_argument("--spec", default="",
+                    help="speculative decode: comma-joined k=INT, "
+                    "draft=reprune|layerskip, draft_sparsity=FLOAT (reprune "
+                    "knob: packs a second higher-sparsity tier), keep=FLOAT "
+                    "(layerskip knob: the draft runs the nnz-ranked top keep "
+                    "fraction of the TARGET envelope's sublayers - no "
+                    "second packing), adaptive_k=0|1")
     ap.add_argument("--artifact", default="",
                     help="serving-artifact directory: boot from it when it "
                     "exists (no re-packing), else pack once and save there")
     ap.add_argument("--tile", default="",
                     help="BKxBN packing tile (e.g. 16x16); required with "
                     "--compressed unless --artifact boots a packing")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace-event JSON of the measured "
+                    "run (phase spans, request lifecycle tracks, occupancy "
+                    "counters) - open in Perfetto / chrome://tracing")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the measured run's metrics snapshot "
+                    "(counters/gauges/phase histograms + fenced dispatch "
+                    "table) as JSON")
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
                     help="serve a prefix-skewed trace: 90%% of requests "
                     "share an N-token system prompt (aligned up to a block "
@@ -280,7 +422,7 @@ def main(argv=None):
         # uncompressed legacy serving runs the registry's forward; both
         # --runtime values coincide
         return _legacy(args, cfg, init(), dev)
-    sp = _serving_params(args, cfg, init, dev)
+    sp, _, _ = _serving_params(args, cfg, init, dev)
     print("compression:", json.dumps(sp.report()))
     if args.runtime == "scan":
         return _legacy(args, cfg, stacked.stack(sp), dev,

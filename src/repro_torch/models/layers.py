@@ -5,8 +5,10 @@ the leaf type: a :class:`~repro_torch.core.deploy.DeployedWeight` runs the
 block-sparse kernel, a :class:`~repro_torch.core.deploy.StackedLayerView`
 runs its layer-indexed form, a raw tensor is a dense product (in QAT mode
 between the fake-quantized activations and weight, eqs. 5-8, on the
-fake-quant kernel). Attention, norms and RoPE stay plain torch, as the
-reference leaves them to XLA.
+fake-quant kernel). The paged decode and verify attention runs on the
+decode-attention kernel (``kernels/decode_attention.py``), which keeps a
+verify position equal to a one-token step; prefill attention, norms and
+RoPE stay plain torch, as the reference leaves them to XLA.
 Layouts follow the reference: (B, S, H, dh) activations and caches.
 """
 from __future__ import annotations
@@ -64,6 +66,18 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + g.float())).to(x.dtype)
+
+
+def rmsnorm_rows(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6
+                 ) -> torch.Tensor:
+    """:func:`rmsnorm` with the mean of squares summed by ``ops.row_sum``,
+    so a row's output does not depend on how many rows the batch has (the
+    library mean picks its reduction split from the row count on the
+    card). The paged decode and verify passes use it: a T-token verify
+    then gives each position exactly what T one-token steps give."""
+    x32 = x.float()
+    var = ops.row_sum(x32 * x32)[..., None] / x32.shape[-1]
     return (x32 * torch.rsqrt(var + eps) * (1.0 + g.float())).to(x.dtype)
 
 
@@ -157,8 +171,12 @@ def decode_attention_multi(p: dict, xt: torch.Tensor, kview: torch.Tensor,
     ``kview``/``vview`` (B, Sv, KV, dh) are the gathered paged blocks. The
     query tokens' own K/V are written into a copy of the view before
     attending (the caller's view is left as it was); positions past each
-    query are masked causally. Returns (y, k_new, v_new) with k_new/v_new
-    (B, T, KV, dh) for the pool write-back."""
+    query are masked causally. The attention runs on the decode-attention
+    kernel (``kernels/decode_attention.py``), whose sums take one order per
+    query row, so each query's output is the same whatever T and the
+    view's length.
+    Returns (y, k_new, v_new) with k_new/v_new (B, T, KV, dh) for the pool
+    write-back."""
     b, t, _ = xt.shape
     q, k, v = qkv_project(p, xt, cfg, cfg.cim)
     pp = pos[:, None] + torch.arange(t, device=xt.device)[None, :]  # (B, T)
@@ -167,15 +185,8 @@ def decode_attention_multi(p: dict, xt: torch.Tensor, kview: torch.Tensor,
     rows = torch.arange(b, device=xt.device)[:, None]
     kview = kview.index_put((rows, pp), k.to(kview.dtype))
     vview = vview.index_put((rows, pp), v.to(vview.dtype))
-    kj = torch.arange(kview.shape[1], device=xt.device)[None, None, None, :]
-    pe = pp[:, None, :, None]  # (B, 1, T, 1) per-query positions
-    mask = kj <= pe
-    if window > 0:
-        mask = mask & (kj > pe - window)
-    nh = cfg.n_heads_eff
-    o = attention_scores(
-        q, _expand_kv(kview.to(xt.dtype), nh, cfg.n_heads),
-        _expand_kv(vview.to(xt.dtype), nh, cfg.n_heads), mask)
+    o = ops.decode_attention(q, kview.to(xt.dtype), vview.to(xt.dtype), pos,
+                             window, cfg.n_heads)
     y = cim_matmul(o.reshape(b, t, -1), p["wo"], cfg.cim)
     return y, k, v
 

@@ -352,32 +352,55 @@ def prefill_last(sp, tokens: torch.Tensor, true_len: int, cfg: ModelConfig):
     return logits, cache["k"], cache["v"]
 
 
+def _paged_pass(sp, views_k: torch.Tensor, views_v: torch.Tensor,
+                pos: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+                attn_on=None, mlp_on=None):
+    """The multi-token pass over gathered paged views behind
+    :func:`verify_step`, :func:`decode_step_paged` and
+    :func:`decode_step_masked`. ``attn_on``/``mlp_on`` (host 0/1 per
+    layer, None = all on) skip sublayers: a skipped one runs no op at all,
+    and a skipped attention returns zero K/V rows. The attention takes its
+    sums in an order fixed by each query row (the decode-attention kernel)
+    and the norms theirs row by row (``rmsnorm_rows``), so a position's
+    logits do not depend on T, the batch or the view's length."""
+    x = L.embed(sp.embed, tokens, cfg.param_dtype)  # (B, T, D)
+    windows, thetas = transformer._layer_kind_arrays(cfg)
+    ks, vs = [], []
+    zeros = None
+    for i, p in enumerate(sp.layer_params()):
+        if attn_on is None or attn_on[i]:
+            cfg_l = transformer._with_theta(cfg, thetas[i])
+            h = L.rmsnorm_rows(x, p["ln1"])
+            attn, kn, vn = L.decode_attention_multi(
+                p, h, views_k[i], views_v[i], pos, cfg_l, window=windows[i])
+            x = x + attn
+        else:
+            if zeros is None:
+                zeros = views_k.new_zeros(tuple(x.shape[:2])
+                                          + tuple(views_k.shape[3:]))
+            kn = vn = zeros
+        if mlp_on is None or mlp_on[i]:
+            h = L.rmsnorm_rows(x, p["ln2"])
+            x = x + _mlp(p, h, cfg)
+        ks.append(kn)
+        vs.append(vn)
+    x = L.rmsnorm_rows(x, sp.final_ln)
+    logits = L.logits_out(_head(sp), x, cfg.cim)[..., : cfg.vocab]
+    return logits, torch.stack(ks), torch.stack(vs)
+
+
 def verify_step(sp, views_k: torch.Tensor, views_v: torch.Tensor,
                 pos: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig):
     """Batched multi-token pass over gathered paged views.
 
     ``tokens`` (B, T) are row b's next T input tokens at absolute positions
-    ``pos[b] .. pos[b]+T-1``; position t's logits equal what T sequential
-    :func:`decode_step_paged` calls produce. The prefix-cache suffix pass
-    runs the unshared prompt span through this in one call.
+    ``pos[b] .. pos[b]+T-1``; position t's logits equal, bit for bit, what
+    T sequential :func:`decode_step_paged` calls produce. Speculative
+    decoding verifies a draft run with it, and the prefix-cache suffix
+    pass runs the unshared prompt span through it in one call.
 
     Returns (logits (B, T, V), k_new (L, B, T, KV, dh), v_new)."""
-    x = L.embed(sp.embed, tokens, cfg.param_dtype)  # (B, T, D)
-    windows, thetas = transformer._layer_kind_arrays(cfg)
-    ks, vs = [], []
-    for i, p in enumerate(sp.layer_params()):
-        cfg_l = transformer._with_theta(cfg, thetas[i])
-        h = L.rmsnorm(x, p["ln1"])
-        attn, kn, vn = L.decode_attention_multi(
-            p, h, views_k[i], views_v[i], pos, cfg_l, window=windows[i])
-        x = x + attn
-        h = L.rmsnorm(x, p["ln2"])
-        x = x + _mlp(p, h, cfg)
-        ks.append(kn)
-        vs.append(vn)
-    x = L.rmsnorm(x, sp.final_ln)
-    logits = L.logits_out(_head(sp), x, cfg.cim)[..., : cfg.vocab]
-    return logits, torch.stack(ks), torch.stack(vs)
+    return _paged_pass(sp, views_k, views_v, pos, tokens, cfg)
 
 
 def decode_step_paged(sp, views_k: torch.Tensor, views_v: torch.Tensor,
@@ -388,7 +411,25 @@ def decode_step_paged(sp, views_k: torch.Tensor, views_v: torch.Tensor,
     views_k/views_v: (L, B, Sv, KV, dh); pos: (B,) per-slot positions;
     tokens: (B, 1). Returns (logits (B, V), k_new (L, B, KV, dh), v_new)
     for the caller to write back into the block pool."""
-    logits, ks, vs = verify_step(sp, views_k, views_v, pos, tokens, cfg)
+    logits, ks, vs = _paged_pass(sp, views_k, views_v, pos, tokens, cfg)
+    return logits[:, 0], ks[:, :, 0], vs[:, :, 0]
+
+
+def decode_step_masked(sp, views_k: torch.Tensor, views_v: torch.Tensor,
+                       pos: torch.Tensor, tokens: torch.Tensor,
+                       cfg: ModelConfig, attn_on, mlp_on):
+    """One decode step over a SUBLAYER SUBSET of the same weights: the
+    layer-skip speculative draft's forward. ``attn_on``/``mlp_on`` are
+    host 0/1 sequences of length L; a masked-off sublayer launches nothing
+    (no projection, no fake-quant, no norm), which stands in for the
+    reference's ``lax.cond``. Skipped attentions return zero KV rows;
+    nothing reads them, and draft KV is never committed. With every mask on
+    it is :func:`decode_step_paged`, bit for bit.
+
+    Same signature and returns as :func:`decode_step_paged` plus the
+    masks."""
+    logits, ks, vs = _paged_pass(sp, views_k, views_v, pos, tokens, cfg,
+                                 attn_on=attn_on, mlp_on=mlp_on)
     return logits[:, 0], ks[:, :, 0], vs[:, :, 0]
 
 

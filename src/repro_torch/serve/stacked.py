@@ -23,12 +23,12 @@ import torch
 
 from ..core import deploy as D
 from . import deployed as DP
-from .deployed import (decode_step, decode_step_paged, prefill,
-                       prefill_hidden, prefill_last, verify_step)
+from .deployed import (decode_step, decode_step_masked, decode_step_paged,
+                       prefill, prefill_hidden, prefill_last, verify_step)
 
 __all__ = ["StackedParams", "stack", "prefill", "decode_step", "model_fns",
            "prefill_hidden", "prefill_last", "decode_step_paged",
-           "verify_step"]
+           "decode_step_masked", "verify_step"]
 
 
 @dataclasses.dataclass

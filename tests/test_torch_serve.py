@@ -212,7 +212,7 @@ def test_batch_server_defaults_to_cuda(models, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchServer(tcfg, tsp)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="draft_serving"):
         BatchServer(tcfg, tsp, device="cpu", engine="spec")
     with pytest.raises(NotImplementedError):
-        BatchServer(tcfg, tsp, device="cpu", tracer=object())
+        BatchServer(tcfg, tsp, device="cpu", mesh=object())

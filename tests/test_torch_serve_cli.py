@@ -121,7 +121,7 @@ def test_compressed_without_tile_exits_with_message():
                      "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag", [["--spec", "k=4"], ["--mesh", "macro=2"],
+@pytest.mark.parametrize("flag", [["--profile", "p"], ["--mesh", "macro=2"],
                                   ["--gateway", "t.json"], ["--autotune", "2"],
                                   ["--parity-check"]])
 def test_unported_flag_exits_2(flag):

@@ -10,11 +10,9 @@ only the order of the sums differs: 1e-4. In ``cim_mode="qat"`` (w8a8,
 signed activations, as ``ModelConfig.cim`` sets it) the projections
 multiply eq. 5 and eq. 8 levels, whose f32 sums are exact, so outputs and
 logits agree bit for bit and the SSM states to about 1e-7 (the exp and
-softplus of the two frameworks differ by ulps): QAT is held at 1e-5. A
-weight may quantize one level (1/128) apart where torch's and XLA's tanh
-differ by an ulp on a half-level (ROADMAP Queue C);
-``test_qat_weights_quantize_to_the_reference_levels`` holds that these
-draws have no such weight, so a flip cannot hide behind the tolerance.
+softplus of the two frameworks differ by ulps): QAT is held at 1e-5.
+``test_qat_weights_quantize_to_the_reference_levels`` holds every eq. 8
+level bit for bit, so a level flip cannot hide behind the tolerance.
 Greedy tokens are held by the margin rule: they must equal the reference's
 wherever the reference's own top-2 logit margin exceeds the tolerance.
 """
@@ -74,14 +72,43 @@ def _tokens(b, s, seed=0):
         np.int32)
 
 
+def _half_level_ulps(pre: np.ndarray) -> np.ndarray:
+    """Distance of f32 values from the nearest half-level, in f32 ulps of
+    the value."""
+    pre = pre.astype(np.float32)
+    half = np.floor(pre) + np.float32(0.5)
+    return np.abs(pre.astype(np.float64) - half) / np.spacing(
+        np.abs(pre)).astype(np.float64)
+
+
+def _level_flips(name, got, want, pre, bits):
+    """(projection, index, port level, reference level, ulps from a
+    half-level) for every weight whose eq. 8 level differs."""
+    step = 2.0 ** (bits - 1)
+    lg = np.rint(got.astype(np.float64) * step).astype(np.int64)
+    lw = np.rint(want.astype(np.float64) * step).astype(np.int64)
+    ulps = _half_level_ulps(pre)
+    return [(name, tuple(int(i) for i in idx), int(lg[idx]), int(lw[idx]),
+             float(ulps[idx])) for idx in zip(*np.nonzero(lg != lw))]
+
+
 @pytest.mark.parametrize("arch,layout", [("mamba2-780m", "fused"),
                                          ("mamba2-780m", "split"),
                                          ("yi-6b", "fused")])
 def test_qat_weights_quantize_to_the_reference_levels(arch, layout):
     """Every projection weight of the parity params through ``maybe_quant_w``
-    (eqs. 6 and 8) lands on the reference's level, bit for bit: no weight of
-    these draws sits on a tanh half-level, so the QAT tolerance stays at a
-    few f32 ulps."""
+    (eqs. 6 and 8) lands on the reference's level, bit for bit. The two
+    frameworks' tanh round differently: their eq. 8 pre-rounding values
+    ``w_bar * (2^(b-1) - 1)`` differ by up to 6 f32 ulps on these draws,
+    and the nearest of them to a half-level lies 6 ulps from it, on the
+    side both frameworks round to. The port's weights are first held equal
+    to the reference's bit for bit, so that a failure tells weights that
+    differ from levels that do; a level failure lists every differing
+    level with its projection, index, both levels and the reference's
+    distance from a half-level in ulps (a +-1 flip within a few ulps of
+    one is the two tanh functions rounding; anything else is a fault of
+    the port)."""
+    from repro.core import quant as RQ
     from repro.models import layers as RL
     from repro_torch.models import layers as TL
     rcfg, tcfg, rp, tp = _params("qat", layout, arch)
@@ -90,12 +117,23 @@ def test_qat_weights_quantize_to_the_reference_levels(arch, layout):
                if w.dim() == 3 and not name.startswith("conv")
                for i in range(w.shape[0])]  # the conv kernel is not CIM
     weights.append(("head", tp["head"], rp["head"]))
+    q = rcfg.cim.quant
+    flips, n_levels = [], 0
     for name, wt, wj in weights:
-        np.testing.assert_array_equal(TL.maybe_quant_w(wt, tcfg.cim).numpy(),
-                                      np.asarray(RL.maybe_quant_w(wj,
-                                                                  rcfg.cim)),
-                                      err_msg=name)
+        np.testing.assert_array_equal(wt.numpy(), np.asarray(wj),
+                                      err_msg=f"{name}: weights differ")
+        got = TL.maybe_quant_w(wt, tcfg.cim).numpy()
+        want = np.asarray(RL.maybe_quant_w(wj, rcfg.cim))
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        pre = np.asarray(RQ.tanh_normalize(jnp.asarray(wj, jnp.float32),
+                                           q.group_size)
+                         * (2.0 ** (q.w_bits - 1) - 1.0))
+        flips += _level_flips(name, got, want, pre, q.w_bits)
+        n_levels += got.size
     assert len(weights) >= 5
+    report = "\n".join(f"{n} {i}: port {a}, reference {b}, {u:.1f} ulps "
+                        "from a half-level" for n, i, a, b, u in flips)
+    assert not flips, f"{len(flips)} of {n_levels} levels differ:\n{report}"
 
 
 @pytest.mark.parametrize("mode", ["dense", "qat"])
