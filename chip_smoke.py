@@ -31,12 +31,17 @@ needed. Phases (any failure exits non-zero):
               the 16-byte path, by the per-path launch counts); the paged
               decode-attention kernel at yi-6b's heads (32 over 4 kv
               heads, dh 128) over DA_VIEWS (the main path's view and
-              serving contexts), decode and verify rows, a sliding window
-              and padded heads, bf16 within DA_TOL of max |plain| and f32
-              within DA_F32_TOL, each call repeated bit for bit, a verify
-              launch bit for bit equal to one-token launches over views
-              cut past each position; the paged pass's row-by-row norm
-              equal alone and in batches of 1 to NORM_ROWS rows;
+              serving contexts), decode and verify rows and a
+              prefix-suffix row (one slot, DA_PREFIX_T tokens over
+              DA_PREFIX_VIEW positions), a sliding window and padded
+              heads, bf16 within DA_TOL of max |plain| and f32 within
+              DA_F32_TOL, each call repeated bit for bit, every
+              multi-token launch bit for bit equal to one-token launches
+              over views cut past each position, the k_new/v_new path bit
+              for bit equal to the spliced view at every view, and at the
+              longest view (more chunks than a cluster has CTAs) other
+              launch plans bit for bit equal; the paged pass's row-by-row
+              norm equal alone and in batches of 1 to NORM_ROWS rows;
   3. serve yi-6b - yi-6b at full width in bf16, depth cut to 4 layers,
               random weights from a seed, compressed (uniform 128x128 tile,
               60% tile sparsity) and served by BatchServer on the scan and
@@ -89,16 +94,21 @@ needed. Phases (any failure exits non-zero):
               draft=layerskip (no second packing), --trace-out and
               --metrics-out, tokens equal to the booted scan run's and
               both files validated; launch counts for every run;
-  7. profile - torch.profiler over a short scan-engine run and a short
-              mamba2 generate: the device's busy share and its top kernels;
+  7. profile - torch.profiler over a short scan-engine run, a short
+              spec-engine run and a short mamba2 generate: the device's
+              busy share and its top kernels, and in the yi-6b runs
+              exactly one decode-attention kernel per wrapper call;
   8. times  - kernel, bound, plain-version and library times per shape
               (the block-sparse kernel at all six yi-6b rows, the
               decode-attention kernel at decode and verify rows over
-              DA_VIEWS), and the per-launch device time of the
-              block-sparse, fake_quant and ssd_intra kernels.
+              DA_VIEWS and the prefix-suffix row), and the per-launch
+              device time of the block-sparse, fake_quant, ssd_intra and
+              decode-attention kernels.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
-``{"kernels": [...]}`` line, and as its last line
+``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
+with the timed row that fares worst against its library call), and as its
+last line
 ``{"ok": true, "device": {...}}``. Without a GPU it exits 2 and prints no
 result.
 """
@@ -147,6 +157,10 @@ VERIFY_ROWS = N_SLOTS * (SPEC_K + 1)
 DA_TOL = 2e-2
 DA_F32_TOL = 1e-5
 DA_VIEWS = (160, 1024, 4096)
+# the prefix-cache suffix pass: one slot's unshared prompt tokens through
+# one verify pass over its view
+DA_PREFIX_T = 64
+DA_PREFIX_VIEW = 1024
 # the paged pass's norm holds each row equal alone and in batches of 1 to
 # NORM_ROWS rows (phase 2): a verify runs N_SLOTS * (k + 1) rows, a suffix
 # prefill up to a prompt's length
@@ -327,65 +341,115 @@ def plain_kernels(kern, attention=False):
          DA.decode_attention) = saved
 
 
-def da_inputs(torch, cfg, t, sv, gen, dtype):
-    """Decode-attention inputs at yi-6b's heads: N_SLOTS rows of t query
-    tokens over views of sv positions, the rows at four depths; in a view
-    longer than a chunk of the kernel (256 keys) the first row's tokens
-    cross from its one-block form into its chunked one."""
-    q = torch.randn((N_SLOTS, t, cfg.n_heads, cfg.dh), generator=gen,
-                    device=DEV).to(dtype)
-    k, v = (torch.randn((N_SLOTS, sv, cfg.n_kv_heads, cfg.dh), generator=gen,
+def da_inputs(torch, cfg, t, sv, gen, dtype, slots=N_SLOTS, q_dtype=None):
+    """Decode-attention inputs at yi-6b's heads: ``slots`` rows of t query
+    tokens over views of sv positions, N_SLOTS rows at four depths (the
+    first one's tokens cross a chunk edge of the kernel), a single row at
+    the end of the view; K/V in ``dtype``, q in ``q_dtype`` (default the
+    same; f32 over bf16 K/V is the compressed serving path's form, where q
+    comes out of the block-sparse kernel in f32)."""
+    q = torch.randn((slots, t, cfg.n_heads, cfg.dh), generator=gen,
+                    device=DEV).to(q_dtype or dtype)
+    k, v = (torch.randn((slots, sv, cfg.n_kv_heads, cfg.dh), generator=gen,
                         device=DEV).to(dtype) for _ in range(2))
-    pos = torch.tensor([min(254, sv - t), sv // 3, sv // 2, sv - t],
-                       dtype=torch.int32, device=DEV)
+    depths = ([min(254, sv - t), sv // 3, sv // 2, sv - t] if slots > 1
+              else [sv - t])
+    pos = torch.tensor(depths, dtype=torch.int32, device=DEV)
     return q, k, v, pos
 
 
 def check_decode_attention(torch, DA, cfg):
     """Phase 2: the paged decode-attention kernel against its plain
     version at yi-6b's heads over DA_VIEWS, decode (T = 1) and verify
-    (T = SPEC_K + 1) rows, bf16 within DA_TOL of max |plain| (f32 within
-    DA_F32_TOL at the main view), a sliding window and zero-padded heads
-    at the main view; every call repeated bit for bit; each verify launch
-    against T one-token launches over views cut just past each position,
-    bit for bit. Then the paged pass's norm (``layers.rmsnorm_rows`` at
-    d_model) on every row count from 1 to NORM_ROWS, each row equal to the
-    row alone; beside it, printed and not held, the first row count at
-    which the library norm (``layers.rmsnorm``) is not. Returns the
-    largest |kernel - plain|."""
+    (T = SPEC_K + 1) rows, and a prefix-suffix row (one slot, T =
+    DA_PREFIX_T over DA_PREFIX_VIEW positions), bf16 within DA_TOL of max
+    |plain| (f32 within DA_F32_TOL at the main view, and f32 q over bf16
+    K/V, the serving path's form, within DA_F32_TOL at every view), a
+    sliding window and zero-padded heads at the main view; every call
+    repeated bit for bit; each multi-token launch against T one-token
+    launches over views cut
+    just past each position, bit for bit; the k_new/v_new path bit for bit
+    equal to the view with them spliced in, at every view; at the longest
+    view (more chunks than a cluster has CTAs) the launch under other plans
+    (smaller clusters, partials added in rounds, scores recomputed from K)
+    bit for bit equal to the wrapper's plan. Then the paged pass's norm
+    (``layers.rmsnorm_rows`` at d_model) on every row count from 1 to
+    NORM_ROWS, each row equal to the row alone; beside it, printed and not
+    held, the first row count at which the library norm
+    (``layers.rmsnorm``) is not. Returns the largest |kernel - plain|."""
     from repro_torch.models import layers as L
     gen = torch.Generator(device=DEV).manual_seed(21)
     DA.reset_launches()
     n, worst = 0, 0.0
-    for dtype, tol, views in ((torch.bfloat16, DA_TOL, DA_VIEWS),
-                              (torch.float32, DA_F32_TOL, DA_VIEWS[:1])):
-        for sv in views:
-            for t in (1, SPEC_K + 1):
-                q, k, v, pos = da_inputs(torch, cfg, t, sv, gen, dtype)
-                padded = cfg.n_heads - cfg.n_kv_heads  # true heads
-                cases = [(0, 0)] + ([(64, 0), (0, padded)]
-                                    if sv == DA_VIEWS[0] else [])
-                for window, n_true in cases:
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = [(q_dt, tol, sv, t, N_SLOTS) for q_dt, tol in ((bf16, DA_TOL),
+                                                          (f32, DA_F32_TOL))
+            for sv in DA_VIEWS for t in (1, SPEC_K + 1)]
+    rows += [(q_dt, tol, DA_PREFIX_VIEW, DA_PREFIX_T, 1)
+             for q_dt, tol in ((bf16, DA_TOL), (f32, DA_F32_TOL))]
+    rows = [(q_dt, bf16, tol, sv, t, slots)
+            for q_dt, tol, sv, t, slots in rows]
+    rows += [(f32, f32, DA_F32_TOL, DA_VIEWS[0], t, N_SLOTS)
+             for t in (1, SPEC_K + 1)]
+    plans = {}
+    for q_dt, dtype, tol, sv, t, slots in rows:
+        q, k, v, pos = da_inputs(torch, cfg, t, sv, gen, dtype, slots, q_dt)
+        padded = cfg.n_heads - cfg.n_kv_heads  # true heads
+        cases = [(0, 0)] + ([(64, 0), (0, padded)]
+                            if sv == DA_VIEWS[0] else [])
+        for window, n_true in cases:
+            got = DA.decode_attention(q, k, v, pos, window, n_true)
+            again = DA.decode_attention(q, k, v, pos, window, n_true)
+            n += 2
+            assert torch.equal(got, again), (sv, t, window, n_true)
+            want = DA.decode_attention_plain(q, k, v, pos, window,
+                                             n_true).float()
+            err = float((got.float() - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            assert err <= tol * scale, (q_dt, dtype, sv, t, window, err)
+            worst = max(worst, err)
+        full = got  # the last case's
+        if t > 1:
+            for ti in range(t):
+                cut = int(pos.max()) + ti + 1
+                one = DA.decode_attention(q[:, ti:ti + 1], k[:, :cut],
+                                          v[:, :cut], pos + ti, window,
+                                          n_true)
+                n += 1
+                assert torch.equal(one[:, 0], full[:, ti]), (sv, ti)
+        # the step's own K/V from k_new / v_new, not spliced into the view
+        b = q.shape[0]
+        kn, vn = (torch.randn((b, t, cfg.n_kv_heads, cfg.dh), generator=gen,
+                              device=DEV).to(dtype) for _ in range(2))
+        at = (torch.arange(b, device=DEV)[:, None],
+              pos.long()[:, None] + torch.arange(t, device=DEV)[None])
+        assert torch.equal(
+            DA.decode_attention(q, k, v, pos, 0, 0, kn, vn),
+            DA.decode_attention(q, k.index_put(at, kn), v.index_put(at, vn),
+                                pos)), ("k_new", sv, t)
+        n += 2
+        pl = DA.launch_plan(q, k, cfg.n_heads, q_dt, dtype)
+        form = {(bf16, bf16): "", (f32, bf16): " f32q", (f32, f32): " f32"}
+        plans[f"{sv}x{t}{form[q_dt, dtype]}"] = [
+            pl.tokens, pl.cluster, pl.cache, pl.slots]
+        if sv == DA_VIEWS[-1]:
+            # more chunks than CTAs; other plans change no bit
+            chunks = -(-sv // DA.chunk_keys(k.element_size()))
+            assert chunks > pl.cluster, (chunks, pl)
+            small = DA.plan(q.shape[0], t, cfg.n_heads, cfg.n_kv_heads, sv,
+                            cfg.dh, q.element_size(), k.element_size(), 24)
+            wrapper_plan = DA.launch_plan
+            for other in (dataclasses.replace(pl, cache=0),  # recomputed
+                          dataclasses.replace(pl, slots=1),  # rounds
+                          small):  # other tiles and clusters
+                DA.launch_plan = lambda *_, other=other: other
+                try:
                     got = DA.decode_attention(q, k, v, pos, window, n_true)
-                    again = DA.decode_attention(q, k, v, pos, window, n_true)
-                    n += 2
-                    assert torch.equal(got, again), (sv, t, window, n_true)
-                    want = DA.decode_attention_plain(q, k, v, pos, window,
-                                                     n_true).float()
-                    err = float((got.float() - want).abs().max())
-                    scale = max(1.0, float(want.abs().max()))
-                    assert err <= tol * scale, (dtype, sv, t, window, err)
-                    worst = max(worst, err)
-                if t > 1:
-                    full = got
-                    for ti in range(t):
-                        cut = int(pos.max()) + ti + 1
-                        one = DA.decode_attention(
-                            q[:, ti:ti + 1], k[:, :cut], v[:, :cut],
-                            pos + ti, window, n_true)
-                        n += 1
-                        assert torch.equal(one[:, 0], full[:, ti]), (sv, ti)
-                del q, k, v
+                finally:
+                    DA.launch_plan = wrapper_plan
+                assert torch.equal(got, full), (sv, t, other)
+                n += 1
+        del q, k, v, full
     assert DA.LAUNCHES == n, (DA.LAUNCHES, n)
     g = torch.randn(cfg.d_model, generator=gen, device=DEV).to(
         cfg.param_dtype)
@@ -403,12 +467,17 @@ def check_decode_attention(torch, DA, cfg):
                 break
     log(f"[kernel] decode_attention: {n} launches at yi-6b's heads "
         f"({cfg.n_heads} over {cfg.n_kv_heads} kv heads, dh {cfg.dh}), "
-        f"views {list(DA_VIEWS)}, T 1 and {SPEC_K + 1}, bf16 and f32: "
+        f"views {list(DA_VIEWS)}, T 1 and {SPEC_K + 1}, and T "
+        f"{DA_PREFIX_T} over {DA_PREFIX_VIEW} in one slot, bf16, f32 q over "
+        f"bf16 K/V and f32: "
         f"within tolerance of the plain version (max |diff| {worst:.4g}), "
-        f"repeats bit for bit, verify rows bit for bit equal to one-token "
-        f"launches; rmsnorm_rows at d_model {cfg.d_model}: every row equal "
-        f"alone and in batches of 1 to {NORM_ROWS} rows (the library "
-        f"rmsnorm first differs at {lib_first} rows)")
+        f"repeats bit for bit, multi-token rows bit for bit equal to "
+        f"one-token launches, k_new/v_new bit for bit equal to the spliced "
+        f"view, other plans at {DA_VIEWS[-1]} bit for bit equal; plans "
+        f"[tokens, cluster, cache, slots] {plans}; rmsnorm_rows at d_model "
+        f"{cfg.d_model}: every row equal alone and in batches of 1 to "
+        f"{NORM_ROWS} rows (the library rmsnorm first differs at "
+        f"{lib_first} rows)")
     return worst
 
 
@@ -854,8 +923,12 @@ def verify_exact(torch, kern, cfg, sxp):
             secs.append(time.perf_counter() - t0)
         return secs
 
-    def library_attention(q, k, v, p, window=0, n_true=0):
+    def library_attention(q, k, v, p, window=0, n_true=0, k_new=None,
+                          v_new=None):
         pp = p.long()[:, None] + torch.arange(q.shape[1], device=DEV)[None]
+        if k_new is not None:  # the step's K/V spliced into copies
+            at = (torch.arange(q.shape[0], device=DEV)[:, None], pp)
+            k, v = k.index_put(at, k_new), v.index_put(at, v_new)
         kj = torch.arange(k.shape[1], device=DEV)[None, None, None, :]
         mask = kj <= pp[:, None, :, None]
         if window > 0:
@@ -1551,12 +1624,16 @@ def cli(torch, kern, card):
     return counts
 
 
-def profile_run(torch, label, run, kernels):
+def profile_run(torch, label, run, kernels, per_call=None):
     """Phase 5: where ``run`` spends the card's time, from torch.profiler
     (its own overhead slows the host, so the busy share it reports is a
     lower bound for an unprofiled run). ``kernels`` maps a name to a
-    substring of the kernel's symbol."""
+    substring of the kernel's symbol. ``per_call`` (symbol, module with
+    LAUNCHES and reset_launches): the device must run exactly one kernel
+    of that symbol per wrapper call of the run."""
     from torch.profiler import ProfilerActivity, profile
+    if per_call:
+        per_call[1].reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1577,6 +1654,11 @@ def profile_run(torch, label, run, kernels):
            **{f"{name}_ms": sum(dev_us(e) for e in events if sym in e.key)
               / 1e3 for name, sym in kernels.items()},
            "top": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top]}
+    if per_call and events:
+        sym, mod = per_call
+        ran = sum(e.count for e in events if sym in e.key)
+        assert ran == mod.LAUNCHES > 0, (label, sym, ran, mod.LAUNCHES)
+        out[f"{sym}_kernels_per_call"] = [ran, mod.LAUNCHES]
     if not events:
         out = {"run": label,
                "device_time": "not measured (profiler saw no device time)"}
@@ -1584,7 +1666,9 @@ def profile_run(torch, label, run, kernels):
 
 
 def profile_serve(torch, cfg, sp):
-    """A scan-engine serve run of 4 requests."""
+    """A scan-engine serve run of 4 requests; one decode-attention kernel
+    on the device per wrapper call."""
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.serve import BatchConfig, BatchServer, Request
     srv = BatchServer(cfg, sp, engine="scan", device=DEV,
                       bcfg=BatchConfig(n_slots=N_SLOTS, block_size=16,
@@ -1596,11 +1680,14 @@ def profile_serve(torch, cfg, sp):
         "decode_steps": srv.run(reqs).n_decode_steps},
         {"bsr_kernel": "bsr_matmul_kernel", "bsr_reduce": "bsr_split_reduce",
          "bsr_copy": "bsr_x_to_bf16", "fake_quant_kernel": "fake_quant",
-         "decode_attention_kernel": "decode_attention"})
+         "decode_attention_kernel": "decode_attention"},
+        ("decode_attention_kernel", DA))
 
 
 def profile_spec(torch, cfg, sp, draft):
-    """A spec-engine serve run of 4 requests (reprune draft)."""
+    """A spec-engine serve run of 4 requests (reprune draft); one
+    decode-attention kernel on the device per wrapper call."""
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.serve import BatchConfig, BatchServer, Request
     from repro_torch.serve import spec as SPM
     srv = BatchServer(cfg, sp, engine="spec", device=DEV, draft=draft,
@@ -1615,7 +1702,8 @@ def profile_spec(torch, cfg, sp, draft):
         "rounds": srv.run(reqs).spec["n_rounds"]},
         {"bsr_kernel": "bsr_matmul_kernel", "bsr_reduce": "bsr_split_reduce",
          "bsr_copy": "bsr_x_to_bf16", "fake_quant_kernel": "fake_quant",
-         "decode_attention_kernel": "decode_attention"})
+         "decode_attention_kernel": "decode_attention"},
+        ("decode_attention_kernel", DA))
 
 
 def profile_mamba(torch, cfg, params):
@@ -1738,48 +1826,66 @@ def times(torch, K, Q, sp, stacked):
 
 def times_decode_attention(torch, DA, cfg):
     """Phase 8: the decode-attention kernel at decode and verify rows over
-    DA_VIEWS, bf16. Bound: q read and the output written once, and the K
-    and V rows each slot's queries attend (positions 0 to its deepest
-    query) read once, over the HBM rate; or 4 dh FLOPs per (query row,
-    attended key) at the bf16 tensor-core rate. Library: one
+    DA_VIEWS and the prefix-suffix row (one slot, DA_PREFIX_T tokens over
+    DA_PREFIX_VIEW positions), bf16, then the decode and verify rows again
+    in the serving path's form (f32 q over bf16 K/V; the library call then
+    takes K/V widened to f32 ahead of the timing), with its mean device
+    time per launch (``device_ms``). Bound: q read and the output written
+    once, and the K and V rows each slot's queries attend (positions 0 to
+    its deepest query) read once, over the HBM rate; or 4 dh FLOPs per
+    (query row, attended key) at the bf16 tensor-core rate, f32 q too (the
+    kernel runs it on the tensor cores as three exact bf16 planes, whose
+    extra products are its own overhead). Library: one
     scaled_dot_product_attention over the same inputs, the KV heads
     expanded to the query heads and the causal mask made ahead."""
     F = torch.nn.functional
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(23)
     rows = []
-    for sv in DA_VIEWS:
-        for t, label in ((1, "decode"), (SPEC_K + 1, "verify")):
-            q, k, v, pos = da_inputs(torch, cfg, t, sv, gen, torch.bfloat16)
-            pe = pos.long()[:, None] + torch.arange(t, device=DEV)[None]
-            keys = int((pe + 1).sum()) * cfg.n_heads  # (row, key) pairs
-            kv_rows = int(pe.max(dim=1).values.add(1).sum())
-            nbytes = (2 * q.numel() * 2 + pos.numel() * 4
-                      + 2 * kv_rows * cfg.n_kv_heads * cfg.dh * 2)
-            b_ms, b_by = bound_ms(nbytes, 4 * cfg.dh * keys,
-                                  BF16_TC_FLOPS_PER_S)
-            grp = cfg.n_heads // cfg.n_kv_heads
-            kh, vh = (a.repeat_interleave(grp, dim=2).transpose(1, 2)
-                      for a in (k, v))
-            qh = q.transpose(1, 2)
-            kj = torch.arange(sv, device=DEV)[None, None, None, :]
-            mask = kj <= pe[:, None, :, None]
-            row = {"shape": f"decode_attention {label} {sv}",
-                   "entry": "decode_attention", "B": N_SLOTS, "T": t,
-                   "Sv": sv, "H": cfg.n_heads, "KV": cfg.n_kv_heads,
-                   "dh": cfg.dh, "attended_pairs": keys,
-                   "kernel_ms": time_ms(torch, lambda: DA.decode_attention(
-                       q, k, v, pos), flush),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "plain_ms": time_ms(
-                       torch, lambda: DA.decode_attention_plain(q, k, v, pos),
-                       flush, iters=5, warm=1),
-                   "library_ms": time_ms(
-                       torch, lambda: F.scaled_dot_product_attention(
-                           qh, kh, vh, attn_mask=mask), flush)}
-            rows.append(row)
-            log(json.dumps(row))
-            del q, k, v, kh, vh, qh
+    shapes = [(sv, t, label, N_SLOTS) for sv in DA_VIEWS
+              for t, label in ((1, "decode"), (SPEC_K + 1, "verify"))]
+    shapes += [(DA_PREFIX_VIEW, DA_PREFIX_T, "prefix", 1)]
+    # the serving path's form (f32 q over bf16 K/V) at decode and verify
+    shapes += [(sv, t, label + " f32q", N_SLOTS) for sv, t, label, _ in
+               shapes[:2 * len(DA_VIEWS)]]
+    for sv, t, label, slots in shapes:
+        q_dt = torch.float32 if label.endswith("f32q") else torch.bfloat16
+        q, k, v, pos = da_inputs(torch, cfg, t, sv, gen, torch.bfloat16,
+                                 slots, q_dt)
+        pe = pos.long()[:, None] + torch.arange(t, device=DEV)[None]
+        keys = int((pe + 1).sum()) * cfg.n_heads  # (row, key) pairs
+        kv_rows = int(pe.max(dim=1).values.add(1).sum())
+        nbytes = (2 * q.numel() * q.element_size() + pos.numel() * 4
+                  + 2 * kv_rows * cfg.n_kv_heads * cfg.dh * 2)
+        b_ms, b_by = bound_ms(nbytes, 4 * cfg.dh * keys, BF16_TC_FLOPS_PER_S)
+        grp = cfg.n_heads // cfg.n_kv_heads
+        kh, vh = (a.to(q_dt).repeat_interleave(grp, dim=2).transpose(1, 2)
+                  for a in (k, v))
+        qh = q.transpose(1, 2)
+        kj = torch.arange(sv, device=DEV)[None, None, None, :]
+        mask = kj <= pe[:, None, :, None]
+        row = {"shape": f"decode_attention {label} {sv}",
+               "entry": "decode_attention", "B": slots, "T": t,
+               "Sv": sv, "H": cfg.n_heads, "KV": cfg.n_kv_heads,
+               "dh": cfg.dh, "attended_pairs": keys,
+               "kernel_ms": time_ms(torch, lambda: DA.decode_attention(
+                   q, k, v, pos), flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": time_ms(
+                   torch, lambda: DA.decode_attention_plain(q, k, v, pos),
+                   flush, iters=5, warm=1),
+               "library_ms": time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qh, kh, vh, attn_mask=mask), flush),
+               "device_ms": device_split(
+                   torch, lambda: DA.decode_attention(q, k, v, pos),
+                   flush, ("decode_attention_kernel",))[
+                       "decode_attention_kernel"],
+               "plan": list(dataclasses.astuple(DA.launch_plan(
+                   q, k, cfg.n_heads, q_dt, torch.bfloat16)))}
+        rows.append(row)
+        log(json.dumps(row))
+        del q, k, v, kh, vh, qh
     return rows
 
 
@@ -2025,7 +2131,8 @@ def main() -> int:
             "max_abs_err": max_err[entry], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-        if entry in ("bsr_matmul_stacked", "bsr_matmul"):
+        if entry in ("bsr_matmul_stacked", "bsr_matmul",
+                     "decode_attention"):
             # the entry's timed row that fares worst against its library
             # call, so that a losing row cannot hide behind the picked one
             own = [r for r in rows if r.get("entry") == entry]

@@ -68,9 +68,12 @@ def quant_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: torch.Tensor, window: int = 0, n_true: int = 0
-                     ) -> torch.Tensor:
+                     pos: torch.Tensor, window: int = 0, n_true: int = 0,
+                     k_new: Optional[torch.Tensor] = None,
+                     v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of the paged decode / verify pass on its kernel: query
     rows (B, T, H, dh) at positions ``pos[b] + t`` over the views (B, Sv,
-    KV, dh), each row's sums in one order whatever T and Sv."""
-    return _da.decode_attention(q, k, v, pos, window, n_true)
+    KV, dh), the keys at the query positions from ``k_new``/``v_new`` (B,
+    T, KV, dh) when given; each row's sums in one order whatever T and
+    Sv."""
+    return _da.decode_attention(q, k, v, pos, window, n_true, k_new, v_new)

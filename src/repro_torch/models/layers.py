@@ -169,12 +169,13 @@ def decode_attention_multi(p: dict, xt: torch.Tensor, kview: torch.Tensor,
 
     Row b's T query tokens sit at absolute positions pos[b] .. pos[b]+T-1;
     ``kview``/``vview`` (B, Sv, KV, dh) are the gathered paged blocks. The
-    query tokens' own K/V are written into a copy of the view before
-    attending (the caller's view is left as it was); positions past each
-    query are masked causally. The attention runs on the decode-attention
-    kernel (``kernels/decode_attention.py``), whose sums take one order per
-    query row, so each query's output is the same whatever T and the
-    view's length.
+    query tokens' own K/V stand in for the view's at their positions (the
+    kernel reads them from ``k_new``/``v_new``, so the view is neither
+    copied nor changed); positions past each query are masked causally.
+    The attention runs on the decode-attention kernel
+    (``kernels/decode_attention.py``), whose sums take one order per query
+    row, so each query's output is the same whatever T and the view's
+    length.
     Returns (y, k_new, v_new) with k_new/v_new (B, T, KV, dh) for the pool
     write-back."""
     b, t, _ = xt.shape
@@ -182,11 +183,14 @@ def decode_attention_multi(p: dict, xt: torch.Tensor, kview: torch.Tensor,
     pp = pos[:, None] + torch.arange(t, device=xt.device)[None, :]  # (B, T)
     if use_rope:
         q, k = rope(q, pp, cfg.rope_theta), rope(k, pp, cfg.rope_theta)
-    rows = torch.arange(b, device=xt.device)[:, None]
-    kview = kview.index_put((rows, pp), k.to(kview.dtype))
-    vview = vview.index_put((rows, pp), v.to(vview.dtype))
-    o = ops.decode_attention(q, kview.to(xt.dtype), vview.to(xt.dtype), pos,
-                             window, cfg.n_heads)
+    # the attention reads the views, and the step's K/V rounded to the
+    # view's type, as xt's type; a widening cast changes no value (the
+    # kernel widens bf16 K/V itself), so only a narrowing one is made
+    cast = lambda a: (a if torch.promote_types(a.dtype, xt.dtype) == xt.dtype
+                      else a.to(xt.dtype))
+    o = ops.decode_attention(q, cast(kview), cast(vview), pos, window,
+                             cfg.n_heads, cast(k.to(kview.dtype)),
+                             cast(v.to(vview.dtype)))
     y = cim_matmul(o.reshape(b, t, -1), p["wo"], cfg.cim)
     return y, k, v
 
