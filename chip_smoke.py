@@ -16,7 +16,11 @@ needed. Phases (any failure exits non-zero):
               inputs, poisoned padding, truncated packings, stacked and
               single-layer entry points), each call repeated bit for bit
               and each layer's own packing bit for bit equal to the
-              envelope, launches counted by path; fake_quant bit for bit (bits 2/4/8, signed and
+              envelope, launches counted by path; the same kernel at
+              every MARS tile the schedule searches can propose (8-64 a
+              side; bn = 8 on the masked path) at every distinct
+              full-width yi-6b projection shape, at MARS_ROWS (autotune's
+              decode and prefill rows), the same checks; fake_quant bit for bit (bits 2/4/8, signed and
               unsigned, every (in, out) pair of f32 and bf16, ragged
               sizes, NaN, +-inf and exact half-levels, misaligned views
               at odd lengths); ssd_intra_chunk at the full-width
@@ -99,11 +103,26 @@ needed. Phases (any failure exits non-zero):
               busy share and its top kernels, and in the yi-6b runs
               exactly one decode-attention kernel per wrapper call;
   8. times  - kernel, bound, plain-version and library times per shape
-              (the block-sparse kernel at all six yi-6b rows, the
+              (the block-sparse kernel at all six yi-6b rows and at w_gate
+              and w_down's decode and prefill rows at phase 9's tiles: the
+              full-depth schedule's, autotune's winner, 16x16 and 8x8; the
               decode-attention kernel at decode and verify rows over
               DA_VIEWS and the prefix-suffix row), and the per-launch
               device time of the block-sparse, fake_quant, ssd_intra and
-              decode-attention kernels.
+              decode-attention kernels;
+  9. sched  - run after phase 6 (phase 8 times its tiles): the MARS
+              schedule search at full width. default_schedule over
+              full-depth yi-6b in a process of its own, started before
+              the build (its seconds and tile); the CLI in-process at
+              full width cut to SCHED_LAYERS layers: --autotune
+              SCHED_TOPN on a fresh pack (the measured table, the winner
+              never slower than the simulated pick, measure_tile's
+              launches counted), the artifact booted (a cache hit, no
+              re-timing, the same tokens), --compressed with no --tile on
+              the loop runtime (every launch at its projection's schedule
+              tile), executor.verify_layer at each projection shape and
+              obs.gap.kernel_gap on the card, and --spec auto over the
+              booted artifact (the scan run's tokens, spec or declined).
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -198,6 +217,13 @@ MARGIN_TOL = 2e-2
 # multiple of 16), as (d_in, d_out, (bk, bn)); bk != bn, not powers of two
 MASKED_TILES = [(4000, 2400, (40, 24)), (2400, 4000, (24, 40))]
 
+# phase 2's MARS tiles: every (bk, bn) the two schedule searches can
+# propose (default_schedule: 16-64 a side; autotune: 8-32), at every
+# distinct full-width yi-6b projection shape, at autotune.measure_tile's
+# decode and prefill rows; bn = 8 misses the 16-byte conditions (masked)
+MARS_SIDES = (8, 16, 32, 64)
+MARS_ROWS = (4, 32)
+
 # quant_matmul against its plain version: max |kernel - plain| within this
 # share of max |plain| (both widen x to f32 exactly and multiply int8
 # levels exactly; only the order of the f32 sums differs)
@@ -240,6 +266,19 @@ CLI_MAMBA = ["--arch", "mamba2-780m", "--dtype", "bfloat16", "--batch", "4",
 # the cli phase's speculative run over the booted 32-layer artifact
 CLI_SPEC = ["--runtime", "scan", "--spec",
             f"draft=layerskip,keep={SPEC_KEEP},k={SPEC_K}"]
+# the sched phase (9): the CLI's runs at full width cut to SCHED_LAYERS
+# layers, packed by --autotune SCHED_TOPN or the schedule search (no
+# --tile); the full-depth search in its own process must end within
+# SEARCH_TIMEOUT s of being waited for; executor.verify_layer holds the
+# kernel to the dense oracle within VERIFY_TOL x max |oracle| (eq. 5 x and
+# int8 levels are exact on both sides; f32 sums of 4096-11008 terms in
+# another order, as phase 2's 1e-5)
+CLI_SCHED = ["--arch", "yi-6b", "--dtype", "bfloat16", "--compressed",
+             "--target-sparsity", str(SPARSITY)] + CLI_BATCH
+SCHED_LAYERS = 4
+SCHED_TOPN = 3
+SEARCH_TIMEOUT = 900
+VERIFY_TOL = 1e-5
 
 
 def log(*a) -> None:
@@ -522,10 +561,11 @@ def x_for(torch, Q, kind, m, k, gen):
     return x.to(torch.bfloat16) if kind == "bf16" else x
 
 
-def check_kernels(torch, K, Q, shapes):
+def check_kernels(torch, K, Q, shapes, mars_shapes):
     """Phase 2: every kernel entry point against the plain version, at
-    full-width yi-6b shapes (the 16-byte path) and at tiles that miss the
-    16-byte conditions (the masked path), with eq. 5, off-grid f32 and
+    full-width yi-6b shapes (the 16-byte path), at tiles that miss the
+    16-byte conditions (the masked path) and at every MARS tile of the
+    schedule searches over ``mars_shapes``, with eq. 5, off-grid f32 and
     bf16 inputs (off-grid f32 within 1e-5 of the plain version's function
     evaluated in f64, whose f32 evaluation is off it by more than that at
     these widths, as the log shows); per call, a second call equal bit for bit, and each
@@ -603,6 +643,21 @@ def check_kernels(torch, K, Q, shapes):
                   (1, 17, 129), ("eq5", "f32", "bf16"))
     masked = dict(K.LAUNCHES_BY_PATH)
     assert masked["single aligned"] == masked["split aligned"] == 0, masked
+    mars = {}
+    for path in ("aligned", "masked"):
+        K.reset_launches()
+        for bk in MARS_SIDES:
+            for bn in MARS_SIDES:
+                if (bn % 16 == 0) != (path == "aligned"):
+                    continue
+                for d_in, d_out, _ in mars_shapes:
+                    run_cases(f"{d_in}x{d_out}", d_in, d_out, (bk, bn),
+                              [("", None, False)], MARS_ROWS,
+                              ("eq5", "f32", "bf16"))
+        mars[path] = dict(K.LAUNCHES_BY_PATH)
+        other = "masked" if path == "aligned" else "aligned"
+        assert mars[path][f"single {other}"] == mars[path][
+            f"split {other}"] == 0, mars
     log(f"[kernel] {n} comparisons within tolerance (f32 1e-5, off-grid f32 "
         f"1e-5, bf16 2e-2) at rows {(N_SLOTS, VERIFY_ROWS, PROMPT_ROWS)} "
         "(decode, speculative verify, prefill), with a draft-tier packing "
@@ -610,7 +665,10 @@ def check_kernels(torch, K, Q, shapes):
         "shape, each call repeated bit for bit and each layer's "
         "own packing bit for bit equal to the envelope; launches by path: "
         f"yi-6b shapes {aligned}, tiles {[t for _, _, t in MASKED_TILES]} "
-        f"{masked}; max |kernel - plain|: " + ", ".join(
+        f"{masked}; MARS tiles {MARS_SIDES} x {MARS_SIDES} at "
+        f"{[(i, o) for i, o, _ in mars_shapes]}, rows {MARS_ROWS}: "
+        f"bn % 16 == 0 {mars['aligned']}, bn = 8 {mars['masked']}; "
+        "max |kernel - plain|: " + ", ".join(
             f"{e} {d} {v:.3e}" for (e, d), v in sorted(err.items()))
         + "; off-grid f32 x held against the f64 product, max |result - "
         "f64|: " + ", ".join(f"{e} {v:.3e}" for e, v in sorted(exact.items())))
@@ -1624,6 +1682,315 @@ def cli(torch, kern, card):
     return counts
 
 
+def full_search() -> None:
+    """The sched phase's full-depth search, in a process of its own that
+    ``start_full_search`` starts before the build, so that its minutes of
+    host numpy overlap phases 1-6: ``default_schedule`` over full yi-6b
+    (32 layers, the CLI's defaults), printed as one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.models import registry
+    from repro_torch.serve import deployed as DP
+    cfg = registry.get_config("yi-6b", dtype="bfloat16")
+    t0, c0 = time.perf_counter(), time.process_time()
+    sched = DP.default_schedule(cfg)
+    print(json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "cpu_seconds": time.process_time() - c0,
+        "n_layers": cfg.n_layers, "n_nodes": len(sched.layers),
+        "fps": sched.fps, "cycles": sched.cycles,
+        "tiles": {s.name: list(s.tile) for s in sched.layers}}), flush=True)
+
+
+def start_full_search():
+    """``full_search`` in a child process (one thread: it is pure Python)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.full_search()"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+
+
+class Tee:
+    """stdout that also keeps what was written (the CLI's report lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def sched(torch, kern, card, search):
+    """Phase 9 (runs after phase 6; phase 8 times its tiles): the MARS
+    schedule search and the CLI paths it drives, yi-6b at full width.
+    The full-depth ``default_schedule`` comes from ``search`` (started
+    before the build); the CLI runs, ``repro_torch.launch.serve.main``
+    in-process, cut to SCHED_LAYERS layers by wrapping
+    ``registry.get_config`` (their searches simulate 7 x SCHED_LAYERS
+    nodes, not 224): ``--autotune`` on a fresh pack (the table, the winner
+    never slower than the simulated pick, the timing launches counted),
+    the same artifact booted (a cache hit, no ``autotune.*`` timer record,
+    the fresh run's tokens), ``--compressed`` with no ``--tile`` on the
+    loop runtime (every single-layer launch at its projection's schedule
+    tile), then ``executor.verify_layer`` and ``obs.gap.kernel_gap`` on
+    the card and ``--spec auto`` over the booted artifact (the scan run's
+    tokens, whether it serves spec or declines). Returns the launch counts
+    of the CLI runs and the tiles phase 8 times."""
+    import shutil
+    import tempfile
+    from repro_torch.core import deploy as D
+    from repro_torch.kernels import timing as TIM
+    from repro_torch.launch import serve as CLI
+    from repro_torch.models import registry
+    from repro_torch.obs import gap as GAP
+    from repro_torch.sched import autotune as AT
+    from repro_torch.sched import executor as EX
+    from repro_torch.serve import deployed as DP
+    from repro_torch.serve.server import BatchServer
+    K = kern[0]
+    out, err = search.communicate(timeout=SEARCH_TIMEOUT)
+    assert search.returncode == 0, err[-4000:]
+    full = json.loads(out.strip().splitlines()[-1])
+    full_tiles = sorted({tuple(t) for t in full["tiles"].values()})
+    assert full["n_nodes"] == 7 * full["n_layers"] == 224, full["n_nodes"]
+    assert len(full_tiles) == 1, full_tiles
+    full_tile = full_tiles[0]
+    log(f"[sched] default_schedule over full-depth yi-6b ({full['n_layers']}"
+        f" layers, {full['n_nodes']} projections, seq_len 128, groups and "
+        f"alphas 16-64): {full['seconds']:.2f} s on the host clock "
+        f"({full['cpu_seconds']:.2f} s of CPU) in a process of its own "
+        f"beside phases 1-6; tile {full_tile[0]}x{full_tile[1]} for every "
+        f"projection; simulated {full['fps']:.4f} fps ({card})")
+
+    rec = {"reports": [], "autotune": [], "measure_tile": 0, "timed": [],
+           "tiles": {}, "deploy_weight": 0}
+    orig = {"run": (BatchServer, BatchServer.run),
+            "autotune": (AT, AT.autotune),
+            "measure_tile": (AT, AT.measure_tile),
+            "timed": (TIM.DispatchTimer, TIM.DispatchTimer.timed),
+            "bsr_matmul": (K, K.bsr_matmul),
+            "compress": (DP, DP.compress),
+            "default_schedule": (DP, DP.default_schedule),
+            "deploy_weight": (D, D.deploy_weight),
+            "get_config": (registry, registry.get_config)}
+
+    def keep(name, count=False):
+        fn = orig[name][1]
+
+        def wrapped(*a, **k):
+            res = fn(*a, **k)
+            if count:
+                rec[name] += 1
+            else:
+                rec.setdefault(f"last_{name}", []).append(res)
+            return res
+        return wrapped
+
+    def run(self, requests):
+        rep = orig["run"][1](self, requests)
+        rec["reports"].append(rep)
+        rec["masks"] = self.spec_masks
+        return rep
+
+    def timed(self, name, *a, **k):
+        rec["timed"].append(name)
+        return orig["timed"][1](self, name, *a, **k)
+
+    def bsr_matmul(x, blocks, *a):
+        tile = tuple(int(d) for d in blocks.shape[-2:])
+        rec["tiles"][tile] = rec["tiles"].get(tile, 0) + 1
+        return orig["bsr_matmul"][1](x, blocks, *a)
+
+    BatchServer.run = run
+    AT.autotune = keep("autotune")
+    AT.measure_tile = keep("measure_tile", count=True)
+    TIM.DispatchTimer.timed = timed
+    K.bsr_matmul = bsr_matmul
+    DP.compress = keep("compress")
+    DP.default_schedule = keep("default_schedule")
+    D.deploy_weight = keep("deploy_weight", count=True)
+    registry.get_config = lambda arch, **k: orig["get_config"][1](
+        arch, **{"n_layers": SCHED_LAYERS, **k})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sched_")
+    art = os.path.join(tmp, "yi-6b-tuned")
+    counts = {}
+
+    def drive(label, argv):
+        for key in ("reports", "timed", "autotune"):
+            rec[key] = []
+        rec.update(measure_tile=0, deploy_weight=0, tiles={})
+        for key in [k for k in rec if k.startswith("last_")]:
+            del rec[key]
+        torch.cuda.synchronize()
+        reset_launches(kern)
+        log(f"[sched] {label}: main({' '.join(argv)})")
+        tee = Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rep = CLI.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[f"sched {label}"] = launch_counts(kern)
+        return rep, tee.text(), secs
+
+    def forwards_paged():
+        return (sum(r.n_requests + r.n_decode_steps for r in rec["reports"]),
+                sum(paged_passes(r) for r in rec["reports"]))
+
+    try:
+        cfg = registry.get_config("yi-6b", dtype="bfloat16")
+        assert cfg.n_layers == SCHED_LAYERS
+        shapes = AT.projection_shapes(cfg)
+        tuned = CLI_SCHED + ["--autotune", str(SCHED_TOPN), "--artifact", art,
+                             "--runtime", "scan"]
+        fresh, text, secs = drive("autotune pack", tuned)
+        res = rec["last_autotune"][-1]
+        assert not res.cache_hit and res.backend == AT.backend_name(DEV), res
+        assert len(res.table) == SCHED_TOPN == rec["measure_tile"]
+        by_tile = {tuple(r["tile"]): r for r in res.table}
+        assert res.simulated_tile in by_tile
+        assert (by_tile[res.best_tile]["total_s"]
+                <= by_tile[res.simulated_tile]["total_s"]), res.table
+        n_timed = SCHED_TOPN * len(shapes) * 2  # phases per tile and shape
+        assert sum(n.startswith("autotune.") for n in rec["timed"]) == \
+            2 * n_timed  # measure_tile's default repeats
+        for r in res.table:
+            log(f"[sched] autotune tile {r['tile'][0]}x{r['tile'][1]}: "
+                f"prefill_ms {r['prefill_s'] * 1e3:.4f} decode_ms "
+                f"{r['decode_s'] * 1e3:.4f} total_ms "
+                f"{r['total_s'] * 1e3:.4f} sim_fps {r['sim_fps']} "
+                f"(host clock, fenced, best of 2, count-weighted over "
+                f"{[(i, o, n) for i, o, n in shapes]}; {card})")
+        forwards, paged = forwards_paged()
+        want = compressed_launches(cfg, "scan", forwards, paged)
+        # measure_tile: per tile, shape and phase one warm call and two
+        # timed ones, on the stacked entry
+        want["bsr_matmul_stacked"] += 3 * n_timed
+        got = counts["sched autotune pack"]
+        assert got == want, (got, want)
+        packed = rec["last_compress"][-1]
+        assert DP.packed_tiles(packed) == [D.uniform_fit_tile(
+            DP._projection_shapes(packed), *res.best_tile)]
+        log(f"[sched] autotune pack: winner {res.best_tile[0]}x"
+            f"{res.best_tile[1]} (simulated pick {res.simulated_tile[0]}x"
+            f"{res.simulated_tile[1]}), the winner's total "
+            f"{by_tile[res.best_tile]['total_s'] * 1e3:.4f} ms <= the "
+            f"simulated pick's {by_tile[res.simulated_tile]['total_s'] * 1e3:.4f}"
+            f"; packed uniform {DP.packed_tiles(packed)}; {secs:.2f} s in all "
+            f"(search, timing, pack, save, two serves); tokens_per_s "
+            f"{fresh.tokens_per_s:.2f}; launches {got} ({n_timed * 3} of "
+            "them measure_tile's)")
+        del packed
+
+        booted, text, secs = drive("autotune boot", tuned)
+        assert "no re-packing" in text and "autotune: cache hit" in text
+        assert rec["measure_tile"] == 0 and rec["deploy_weight"] == 0
+        assert not any(n.startswith("autotune.") for n in rec["timed"])
+        forwards, paged = forwards_paged()
+        got = counts["sched autotune boot"]
+        assert got == compressed_launches(cfg, "scan", forwards, paged), got
+        for rid, toks in fresh.outputs.items():
+            assert (booted.outputs[rid] == toks).all(), rid
+        log(f"[sched] autotune boot: cache hit, no autotune.* timer record, "
+            f"no packing; tokens equal the fresh run's on all "
+            f"{booted.n_requests} requests; {secs:.2f} s; launches {got}")
+
+        loop, text, secs = drive("no tile", CLI_SCHED + ["--runtime", "loop"])
+        schedule = rec["last_default_schedule"][-1]
+        tiles = {s.name: s.tile for s in schedule.layers}
+        packed = rec["last_compress"][-1]
+        head_fallback = (cfg.cim_alpha, cfg.cim_alpha)
+        want_tiles = {}
+        for name, dw in packed.deployed().items():
+            tile = D.fit_tile(dw.d_in, dw.d_out,
+                              *tiles.get(name, head_fallback))
+            assert dw.tile == tile, (name, dw.tile, tile)
+            want_tiles[tile] = want_tiles.get(tile, 0) + 1
+        forwards, paged = forwards_paged()
+        got = counts["sched no tile"]
+        assert got == compressed_launches(cfg, "loop", forwards, paged), got
+        want_tiles = {t: n * forwards for t, n in want_tiles.items()}
+        assert rec["tiles"] == want_tiles, (rec["tiles"], want_tiles)
+        for rid, toks in loop.outputs.items():
+            assert ((0 <= toks) & (toks < cfg.vocab)).all(), rid
+        log(f"[sched] no tile: default_schedule over {len(tiles)} "
+            f"projections picked {sorted(set(tiles.values()))} (the head, "
+            f"not in lm_graph, {head_fallback}); every single-layer launch "
+            f"at its projection's tile: {rec['tiles']} over {forwards} "
+            f"forwards; {secs:.2f} s; tokens_per_s {loop.tokens_per_s:.2f}; "
+            f"launches {got}")
+        del packed
+
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        errs = []
+        for proj, d_in, d_out in (("wq", cfg.d_model, cfg.n_heads * cfg.dh),
+                                  ("wk", cfg.d_model, cfg.n_kv_heads * cfg.dh),
+                                  ("w_gate", cfg.d_model, cfg.d_ff),
+                                  ("w_down", cfg.d_ff, cfg.d_model)):
+            s = next(s for s in schedule.layers if s.name == f"blk0_{proj}")
+            w = torch.randn((d_in, d_out), generator=gen, device=DEV) * 0.02
+            x = torch.randn((MARS_ROWS[1], d_in), generator=gen, device=DEV)
+            ref = D.reference_matmul(x, w, cfg.cim, SPARSITY,
+                                     *D.fit_tile(d_in, d_out, *s.tile))
+            tol = VERIFY_TOL * float(ref.abs().max())
+            n0 = K.LAUNCHES_BY_ENTRY["bsr_matmul"]
+            e = EX.verify_layer(x, w, s, cfg.cim, SPARSITY, atol=tol)
+            assert K.LAUNCHES_BY_ENTRY["bsr_matmul"] == n0 + 1
+            errs.append(f"{proj} ({d_in}x{d_out}, tile {s.tile}) {e:.3e} "
+                        f"<= {tol:.3e}")
+            del w, ref
+        log(f"[sched] executor.verify_layer on the card, {MARS_ROWS[1]} "
+            f"rows, kernel vs the dense oracle within {VERIFY_TOL} x "
+            f"max |ref|: " + "; ".join(errs))
+        n0 = K.LAUNCHES_BY_ENTRY["bsr_matmul"]
+        gap = GAP.kernel_gap(N_SLOTS, cfg.d_model, cfg.d_ff, full_tile,
+                             SPARSITY, device=DEV)
+        assert K.LAUNCHES_BY_ENTRY["bsr_matmul"] == n0 + 4  # warm + 3
+        assert gap["backend"] == torch.device(DEV).type and gap["measured_s"] > 0
+        log(f"[sched] obs.gap.kernel_gap: {json.dumps(gap)} ({card})")
+
+        spec, text, secs = drive("spec auto", CLI_SCHED + [
+            "--artifact", art, "--runtime", "scan", "--spec", "auto"])
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith("spec auto: {"))
+        decision = json.loads(line[len("spec auto: "):])
+        got = counts["sched spec auto"]
+        if spec.spec is None:
+            assert decision["verdict"] == "declined", decision
+            forwards, paged = forwards_paged()
+            want = compressed_launches(cfg, "scan", forwards, paged)
+        else:
+            assert decision["verdict"] == "spec", decision
+            want = {}
+            for r in rec["reports"]:  # warm-up and measured runs
+                for key, n in spec_launches(cfg, r, rec["masks"]).items():
+                    want[key] = want.get(key, 0) + n
+        assert got == want, (got, want)
+        for rid, toks in fresh.outputs.items():
+            assert (spec.outputs[rid] == toks).all(), \
+                f"{rid}: --spec auto tokens != the scan run's"
+        j = spec.spec or {}
+        log(f"[sched] spec auto: decision {json.dumps(decision)}; served "
+            f"{'spec' if spec.spec else 'scan'}; tokens equal the scan "
+            f"run's on all {spec.n_requests} requests; acceptance_rate "
+            f"{j.get('acceptance_rate')} tokens_per_s "
+            f"{spec.tokens_per_s:.2f} (scan {booted.tokens_per_s:.2f}); "
+            f"{secs:.2f} s; launches {got}")
+    finally:
+        for name, (owner, fn) in orig.items():
+            setattr(owner, name, fn)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, [("default_schedule", full_tile),
+                    ("autotune", res.best_tile), ("MARS GROUP x alpha",
+                                                   (16, 16))]
+
+
 def profile_run(torch, label, run, kernels, per_call=None):
     """Phase 5: where ``run`` spends the card's time, from torch.profiler
     (its own overhead slows the host, so the busy share it reports is a
@@ -1778,10 +2145,40 @@ def bound(m, k, n, nnz, bk, bn, go):
                     2 * m * blocks, BF16_TC_FLOPS_PER_S)
 
 
+def bsr_rows(torch, K, Q, flush, name, entry, ops, run, k_in, extra=None):
+    """Phase 8's rows of one block-sparse packing (layer 0 of ``ops``) at
+    decode and prefill rows: kernel / bound / plain / library times, and
+    the kernel's device time split into its launches (the bf16 copy of x,
+    the main kernel, the split reduce)."""
+    _, go, nmax, bk, bn = ops[0].shape
+    nnz = int(ops[3][0].clamp(max=nmax).sum())
+    w_dense = K.dense_weight(*ops, 0, k_in)  # the library call's weight
+    rows = []
+    for m in (N_SLOTS, PROMPT_ROWS):
+        x = Q.quantize_activation(torch.randn((m, k_in), device=DEV),
+                                  8, signed=True)
+        b_ms, b_by = bound(m, k_in, go * bn, nnz, bk, bn, go)
+        row = {"shape": f"{name} decode" if m == N_SLOTS
+               else f"{name} prefill", "entry": entry, "M": m,
+               "K": k_in, "N": go * bn, "tile": [bk, bn],
+               "nnz_blocks": nnz, **(extra or {}),
+               "kernel_ms": time_ms(torch, lambda: run(x), flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": time_ms(torch, lambda: K.bsr_matmul_stacked_plain(
+                   x, *ops, 0), flush),
+               "library_ms": time_ms(
+                   torch, lambda: torch.matmul(x, w_dense), flush),
+               "device_ms": device_split(
+                   torch, lambda: run(x), flush,
+                   ("bsr_x_to_bf16", "bsr_matmul_kernel",
+                    "bsr_split_reduce"))}
+        rows.append(row)
+        log(json.dumps(row))
+    return rows
+
+
 def times(torch, K, Q, sp, stacked):
-    """Phase 8: kernel / bound / plain / library times on the packed
-    model's own weights, and the kernel's device time split into its
-    launches (the bf16 copy of x, the main kernel, the split reduce)."""
+    """Phase 8: the block-sparse rows on the packed model's own weights."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     layer0 = stacked.layer_ids[0:1]
     rows = []
@@ -1797,30 +2194,38 @@ def times(torch, K, Q, sp, stacked):
             ops = [sw.blocks, sw.scales, sw.row_idx, sw.nnz]
             run = lambda x: K.bsr_matmul_stacked(x, *ops, layer0)
             entry, k_in = "bsr_matmul_stacked", sw.d_in
-        _, go, nmax, bk, bn = ops[0].shape
-        nnz = int(ops[3][0].clamp(max=nmax).sum())
-        w_dense = K.dense_weight(*ops, 0, k_in)  # the library call's weight
-        for m in (N_SLOTS, PROMPT_ROWS):
-            x = Q.quantize_activation(torch.randn((m, k_in), device=DEV),
-                                      8, signed=True)
-            b_ms, b_by = bound(m, k_in, go * bn, nnz, bk, bn, go)
-            row = {"shape": f"{name} decode" if m == N_SLOTS
-                   else f"{name} prefill", "entry": entry, "M": m,
-                   "K": k_in, "N": go * bn, "tile": [bk, bn],
-                   "nnz_blocks": nnz,
-                   "kernel_ms": time_ms(torch, lambda: run(x), flush),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "plain_ms": time_ms(torch, lambda: K.bsr_matmul_stacked_plain(
-                       x, *ops, 0), flush),
-                   "library_ms": time_ms(
-                       torch, lambda: torch.matmul(x, w_dense), flush),
-                   "device_ms": device_split(
-                       torch, lambda: run(x), flush,
-                       ("bsr_x_to_bf16", "bsr_matmul_kernel",
-                        "bsr_split_reduce"))}
-            rows.append(row)
-            log(json.dumps(row))
-        del w_dense
+        rows += bsr_rows(torch, K, Q, flush, name, entry, ops, run, k_in)
+    return rows
+
+
+def times_mars(torch, K, Q, cfg, tiles):
+    """Phase 8's rows at the schedule searches' tiles (``tiles``: (source,
+    (bk, bn)) pairs; a tile two sources share is timed once): full-width
+    w_gate and w_down, random weights from a seed pruned to SPARSITY and
+    packed at the tile (deploy_weight), as a one-layer envelope on the
+    stacked entry."""
+    from repro_torch.core import deploy as D
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
+    layer0 = torch.zeros(1, dtype=torch.int32, device=DEV)
+    sources = {}
+    for source, tile in tiles:
+        sources.setdefault(tuple(tile), []).append(source)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    rows = []
+    for (bk, bn), src in sources.items():
+        for name, d_in, d_out in (("w_gate", cfg.d_model, cfg.d_ff),
+                                  ("w_down", cfg.d_ff, cfg.d_model)):
+            w = torch.randn((d_in, d_out), generator=gen, device=DEV) * 0.02
+            sw = D.stack_deployed([D.deploy_weight(
+                w, cfg.cim, bk=bk, bn=bn, target_sparsity=SPARSITY)])
+            del w
+            assert sw.tile == (bk, bn), sw.tile
+            ops = [sw.blocks, sw.scales, sw.row_idx, sw.nnz]
+            rows += bsr_rows(
+                torch, K, Q, flush, f"{name} {bk}x{bn}",
+                "bsr_matmul_stacked", ops,
+                lambda x, ops=ops: K.bsr_matmul_stacked(x, *ops, layer0),
+                d_in, {"tile_from": src})
     return rows
 
 
@@ -2014,6 +2419,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    search = start_full_search()
+    try:
+        return run_all(torch, search)
+    finally:
+        if search.poll() is None:
+            search.kill()
+            search.wait()
+
+
+def run_all(torch, search) -> int:
+    """Phases 1-9 (see the module docstring); ``search`` is the full-depth
+    schedule search's process, read by phase 9."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import quant as Q
     from repro_torch.kernels import _build
@@ -2024,6 +2441,7 @@ def main() -> int:
     from repro_torch.kernels import ssd_intra as SI
     from repro_torch.models import registry
     from repro_torch.models.transformer import init_params
+    from repro_torch.sched import autotune as AT
     from repro_torch.serve import deployed as DP
     from repro_torch.serve import stacked as ST
 
@@ -2053,7 +2471,8 @@ def main() -> int:
               ("head", cfg.d_model, cfg.vocab)]
     kern = (K, FQ, SI, QM, DA)
     mcfg = registry.get_config("mamba2-780m", cim_mode="qat")
-    max_err = check_kernels(torch, K, Q, shapes)
+    max_err = check_kernels(torch, K, Q, shapes, AT.projection_shapes(
+        registry.get_config("yi-6b")))
     max_err["fake_quant"] = check_fake_quant(torch, FQ)
     max_err["ssd_intra_chunk"] = check_ssd_intra(torch, SI, mcfg)
     max_err["quant_matmul"] = check_quant_matmul(torch, QM)
@@ -2092,12 +2511,16 @@ def main() -> int:
     counts["baseline"], mlp, bench = baseline(torch, kern,
                                               registry.get_config("yi-6b"))
     counts.update(cli(torch, kern, card))
+    sched_counts, sched_tiles = sched(torch, kern, card, search)
+    counts.update(sched_counts)
 
     profile_serve(torch, cfg, sp)
     profile_spec(torch, cfg, sp, draft)
     del draft
     profile_mamba(torch, mcfg, mparams)
     rows = (times(torch, K, Q, sp, sxp)
+            + times_mars(torch, K, Q, cfg, sched_tiles
+                         + [("the masked path (bn = 8)", (8, 8))])
             + times_mamba(torch, kern, mcfg, mparams)
             + times_quant_matmul(torch, QM, cfg, mlp, bench)
             + times_decode_attention(torch, DA, cfg))

@@ -178,6 +178,19 @@ def deploy_weight(w: torch.Tensor, cim: CIMConfig, bk: int = 128,
                           int(stacked.shape[-1]), bits)
 
 
+def bm_for_rows(rows: int) -> int:
+    """The reference's kernel row tile for an activation row count: the
+    next power of two in [8, 128], a fixed ladder so that changing batch
+    sizes map to few compiled kernels. The port's kernel picks its own tile
+    height from M (``cim_bsr_matmul.plan``) and takes no ``bm``; this
+    ladder stays for the autotuner's signature and for static-shape
+    bucketing."""
+    b = 8
+    while b < rows and b < 128:
+        b *= 2
+    return b
+
+
 def deployed_matmul(x: torch.Tensor, dw: DeployedWeight, layer: int = 0,
                     a_bits: int = 0) -> torch.Tensor:
     """Serving-path matmul: eq.5 activation quant (the fake-quant kernel) +
@@ -206,6 +219,19 @@ def stacked_matmul(x: torch.Tensor, sw: StackedWeight, layer,
                                sw.blocks, sw.scales, sw.row_idx, sw.nnz,
                                layer)
     return y.reshape(*lead, sw.d_out).to(x.dtype)
+
+
+def reference_matmul(x: torch.Tensor, w: torch.Tensor, cim: CIMConfig,
+                     target_sparsity: Optional[float] = None,
+                     bk: int = 128, bn: int = 128) -> torch.Tensor:
+    """Dense oracle for ``deployed_matmul``: the same mask, weight quant and
+    eq. 5 activation quant, then a plain f32 product."""
+    ts = (cim.sparsity.target_sparsity if target_sparsity is None
+          else target_sparsity)
+    mask = S.prune_mask_2d(w, bk, bn, ts)
+    wq = Q.mars_weight_quant(w * mask, cim.quant.w_bits, cim.quant.group_size)
+    xq = Q.quantize_activation(x.float(), cim.quant.a_bits, signed=True)
+    return (xq @ wq.float()).to(x.dtype)
 
 
 def deployment_report(deployed: Dict[str, DeployedWeight]) -> dict:

@@ -4,9 +4,20 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
       --device cpu
 
-  # weights BSR-compressed with one tile, on the GPU (the default device)
+  # weights BSR-compressed with the MARS schedule search's per-projection
+  # tiles (sched/, numpy on the host), on the GPU (the default device)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
-      --compressed --tile 16x16 --target-sparsity 0.5
+      --compressed --target-sparsity 0.5
+
+  # ... or with one given tile
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --compressed --tile 16x16
+
+  # ... or with the tile the block-sparse kernel runs fastest: the top 3
+  # simulated tiles timed on the card, the measurement cached in the
+  # artifact's manifest (a later boot reuses it, never re-times)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --compressed --autotune 3 --artifact /path/to/yi6b-tuned
 
   # stacked runtime: one layer-indexed kernel per projection over the
   # uniform envelope, the layer id on the card (tokens equal the loop's)
@@ -27,6 +38,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
       --compressed --tile 16x16 --spec draft=layerskip,keep=0.5,k=4
 
+  # --spec auto: family, k and knob from the simulated draft/verify cost
+  # and the acceptance calibration stored in the artifact (a spec run with
+  # --artifact folds its measured acceptance in); it serves the scan
+  # engine when the best candidate models a loss
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --compressed --tile 16x16 --artifact /path/to/yi6b-artifact \\
+      --spec auto
+
   # instrumented serve: Perfetto-loadable trace + metrics snapshot of the
   # measured (post-warm-up) run
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
@@ -41,13 +60,12 @@ The subset of ``repro.launch.serve`` whose modules are ported, with the
 same defaults and the same numpy-seeded traces and prompts. Weights come
 from a ``torch.Generator`` seeded by ``--seed`` (other numbers than
 ``jax.random``'s), or from ``--artifact``. Not ported yet, so argparse
-refuses them: ``--parity-check``, ``--mesh``, ``--autotune``,
-``--profile``, ``--gateway``, ``--gateway-parity-check``,
-``--prefill-chunk``, ``--prefill-device``, ``--max-backlog-s``,
-``--max-pending``. ``--spec auto`` exits with a message: the schedule
-search that picks its family, k and knob is not ported, so ``--spec``
-takes explicit values. ``--compressed`` needs ``--tile`` for the same
-reason. Beside the reference's flags: ``--device`` (default cuda).
+refuses them: ``--parity-check``, ``--mesh``, ``--profile``,
+``--gateway``, ``--gateway-parity-check``, ``--prefill-chunk``,
+``--prefill-device``, ``--max-backlog-s``, ``--max-pending``. Beside the
+reference's flags: ``--device`` (default cuda). ``--autotune`` times on
+that device and keys its cache ``torch-cuda`` or ``torch-cpu``, so a
+cache the reference wrote reads as a miss.
 """
 from __future__ import annotations
 
@@ -138,18 +156,68 @@ def _parse_tile(spec):
     return (int(bk), int(bn))
 
 
-def _parse_spec(arg):
+def _load_calibration(args):
+    """The measured acceptance prior stored in the artifact manifest (the
+    autotune cache's slot); an empty SpecCalibration when there is none,
+    and search_spec then uses the uncalibrated priors."""
+    from ..sched.search import SpecCalibration
+    stored = None
+    if args.artifact:
+        try:
+            stored = deployed.load_artifact_extra(
+                args.artifact).get("spec_calibration")
+        except (OSError, ValueError):
+            stored = None
+    if stored is None:
+        return SpecCalibration()
+    try:
+        cal = SpecCalibration.from_json(stored)
+        print(f"spec: loaded acceptance calibration "
+              f"({len(cal.rows)} measured row(s)) from the artifact "
+              "manifest")
+        return cal
+    except ValueError as e:
+        print(f"spec: stored calibration unusable ({e}) - using "
+              "uncalibrated priors")
+        return SpecCalibration()
+
+
+def _parse_spec(arg, cfg, target_sparsity, calibration=None):
     """'k=4,draft_sparsity=0.9' or 'draft=layerskip,keep=0.5,k=4' ->
-    SpecConfig; '' -> None (no speculation)."""
+    SpecConfig; 'auto' picks (family, k, knob) from the simulated cost and
+    the calibrated acceptance prior, and returns None (serve the scan
+    engine) when even the best candidate models a loss; '' -> None (no
+    speculation)."""
     if not arg:
         return None
     if arg == "auto":
-        raise SystemExit(
-            "--spec auto picks the draft family, k and knob with the "
-            "schedule search (sched/, ROADMAP A10), which is not ported yet; "
-            "pass them explicitly, e.g. --spec k=4,draft_sparsity=0.9")
-    usage = (f"--spec expects comma-joined k=INT, draft=reprune|layerskip, "
-             f"draft_sparsity=FLOAT, keep=FLOAT, adaptive_k=0|1, got {arg!r}")
+        from ..sched import search_spec
+        d = search_spec(cfg, target_sparsity=target_sparsity,
+                        calibration=calibration, arch=cfg.name).decision
+        print("spec auto:", json.dumps(d))
+        if d["accept_source"] != "calibrated":
+            print(f"spec auto: acceptance {d['accept']} is a MODELED prior "
+                  "(sched.search uncalibrated fallback), not a measurement "
+                  "- serve one spec run with --artifact and the measured "
+                  "rate is persisted for the next pick")
+        if d["verdict"] == "declined":
+            print(f"spec auto: declined: scan wins (best candidate "
+                  f"{d['family']} k={d['k']} models "
+                  f"{d['predicted_speedup']}x vs target-only decode) - "
+                  "serving the scan engine")
+            return None
+        print(f"spec auto: serving {d['family']} k={d['k']} "
+              f"({'keep' if d['family'] == 'layerskip' else 'draft_sparsity'}"
+              f"={d['knob']}, predicted {d['predicted_speedup']}x, "
+              f"accept={d['accept']} [{d['accept_source']}])")
+        if d["family"] == "layerskip":
+            return spec_mod.SpecConfig(k=int(d["k"]), draft="layerskip",
+                                       keep=float(d["knob"]))
+        return spec_mod.SpecConfig(k=int(d["k"]),
+                                   draft_sparsity=float(d["knob"]))
+    usage = (f"--spec expects 'auto' or comma-joined k=INT, "
+             f"draft=reprune|layerskip, draft_sparsity=FLOAT, keep=FLOAT, "
+             f"adaptive_k=0|1, got {arg!r}")
     kw = {}
     for part in arg.split(","):
         key, _, val = part.partition("=")
@@ -175,10 +243,65 @@ def _parse_spec(arg):
         raise SystemExit(f"--spec: {e}") from None
 
 
+def _run_autotune(args, cfg, dev):
+    """Measured-latency tile pick for a fresh pack: the top-N simulated
+    tiles, each timed through the stacked block-sparse kernel on ``dev``.
+    Returns (AutotuneResult, AutotuneCache); the cache goes into the
+    artifact manifest so later boots reuse the measurement."""
+    from ..sched import autotune as AT
+
+    cache = AT.AutotuneCache()
+    res = AT.autotune(cfg, top_n=args.autotune,
+                      target_sparsity=args.target_sparsity, cache=cache,
+                      device=dev)
+    bk, bn = res.best_tile
+    sbk, sbn = res.simulated_tile
+    print(f"autotune: measured tile {bk}x{bn} over {len(res.table)} "
+          f"candidate(s) on {res.backend} (simulated pick {sbk}x{sbn})")
+    for row in res.table:
+        print(f"autotune:   tile {row['tile'][0]}x{row['tile'][1]} "
+              f"total {row['total_s'] * 1e3:.2f} ms "
+              f"(prefill {row['prefill_s'] * 1e3:.2f}, "
+              f"decode {row['decode_s'] * 1e3:.2f}; "
+              f"sim {row['sim_fps']} fps)")
+    return res, cache
+
+
+def _report_artifact_autotune(cfg, meta, dev):
+    """Boot-path cache report: the stored packing is served either way;
+    this only says whether the stored autotune measurement covers THIS
+    (arch, shapes, backend). Never re-times."""
+    from ..sched import autotune as AT
+
+    stored = meta.get("autotune")
+    if not stored:
+        print("autotune: artifact carries no autotune cache - serving "
+              "stored packing unchanged (re-pack with --autotune to tune)")
+        return
+    try:
+        cache = AT.AutotuneCache.from_json(stored)
+    except ValueError as e:
+        print(f"autotune: stored cache unusable ({e}) - serving stored "
+              "packing unchanged")
+        return
+    hit = cache.get(AT.autotune_key(cfg, AT.backend_name(dev)))
+    if hit is None:
+        print("autotune: cache MISS for this (arch, shapes, backend) - the "
+              "stored packing was tuned elsewhere; serving as stored "
+              "(point --artifact at a fresh directory to re-tune here)")
+    else:
+        bt = hit["best_tile"]
+        print(f"autotune: cache hit ({bt[0]}x{bt[1]}, measured on "
+              f"{hit.get('backend')}) - boot reuses the measurement, "
+              "no re-timing")
+
+
 def _serving_params(args, cfg, init, dev, spec_cfg=None):
     """Boot the serving weights from ``--artifact`` when it holds one (no
     re-packing, no random init), else build them from ``init()`` - packed
-    with ``--tile`` under ``--compressed`` - and save them there. Returns
+    under ``--compressed`` with ``--tile``, ``--autotune``'s measured tile
+    (uniform) or the schedule search's per-projection tiles - and save
+    them there. Returns
     (target, draft-or-None, spec_cfg). With a reprune ``spec_cfg`` the
     draft tier rides the same artifact (two-tier): a single-tier artifact
     is upgraded in place (the draft re-packed from the STORED target, then
@@ -206,6 +329,8 @@ def _serving_params(args, cfg, init, dev, spec_cfg=None):
             print(f"artifact: loaded {args.artifact} "
                   f"(arch={meta.get('arch')}, no re-packing) in "
                   f"{time.perf_counter() - t0:.2f}s")
+            if args.autotune > 0:
+                _report_artifact_autotune(cfg, meta, dev)
             if spec_cfg is None or spec_cfg.draft == "layerskip":
                 # the layerskip family drafts with a sublayer subset of the
                 # TARGET envelope: no second packing to load or build
@@ -231,15 +356,24 @@ def _serving_params(args, cfg, init, dev, spec_cfg=None):
                   f"sparsity {spec_cfg.draft_sparsity}) at {out} in "
                   f"{time.perf_counter() - t0:.2f}s")
             return sp, draft, spec_cfg
+    at_result = at_cache = schedule = None
     tile = _parse_tile(args.tile)
+    if args.compressed and args.autotune > 0 and tile is None:
+        at_result, at_cache = _run_autotune(args, cfg, dev)
+        tile = at_result.best_tile
     if args.compressed and tile is None:
-        raise SystemExit(
-            "--compressed needs --tile BKxBN here: the schedule search that "
-            "picks the tile otherwise (sched/) is not ported yet")
+        t0 = time.perf_counter()
+        schedule = deployed.default_schedule(cfg)
+        tiles = sorted({s.tile for s in schedule.layers})
+        print(f"schedule: searched {len(schedule.layers)} projections in "
+              f"{time.perf_counter() - t0:.2f}s, tiles "
+              f"{['%dx%d' % t for t in tiles]} (simulated "
+              f"{schedule.fps:.2f} fps)")
     params = init()
     t0 = time.perf_counter()
     sp = (deployed.compress(cfg, params, target_sparsity=args.target_sparsity,
-                            tile=tile)
+                            schedule=schedule, tile=tile,
+                            uniform=at_result is not None)
           if args.compressed else deployed.from_params(cfg, params))
     draft = None
     if spec_cfg is not None and spec_cfg.draft == "reprune":
@@ -252,6 +386,9 @@ def _serving_params(args, cfg, init, dev, spec_cfg=None):
         extra = {"compressed": args.compressed}
         if draft is not None:
             extra["draft_sparsity"] = spec_cfg.draft_sparsity
+        if at_result is not None:
+            extra["autotune"] = at_cache.to_json()
+            extra["autotune_tile"] = list(at_result.best_tile)
         out = deployed.save_artifact(args.artifact, sp, cfg, draft=draft,
                                      extra=extra)
         print(f"artifact: packed + saved to {out} in "
@@ -260,7 +397,9 @@ def _serving_params(args, cfg, init, dev, spec_cfg=None):
 
 
 def _batch(args, cfg, init, dev):
-    spec_cfg = _parse_spec(args.spec)
+    calibration = _load_calibration(args) if args.spec else None
+    spec_cfg = _parse_spec(args.spec, cfg, args.target_sparsity,
+                           calibration=calibration)
     sp, draft, spec_cfg = _serving_params(args, cfg, init, dev, spec_cfg)
     if args.compressed:
         print("compression:", json.dumps(sp.report()))
@@ -275,6 +414,8 @@ def _batch(args, cfg, init, dev):
                        n_blocks=args.kv_blocks,
                        prefix_cache=not args.no_prefix_cache)
     engine = "spec" if spec_cfg is not None else args.runtime
+    if args.spec == "auto" and spec_cfg is None:
+        engine = "scan"  # declined: the scan engine, as its message says
     print(f"runtime: {engine}"
           + {"scan": " (layer-indexed kernels over the stacked envelope, "
                      "the layer id on the card)",
@@ -327,6 +468,23 @@ def _batch(args, cfg, init, dev):
             np.array_equal(rep.outputs[r.rid], ref.outputs[r.rid])
             for r in trace()))
     print(json.dumps(out, indent=1))
+    if (spec_cfg is not None and rep.spec is not None
+            and rep.spec.get("proposed", 0) > 0):
+        # close the calibration loop: fold the MEASURED acceptance into the
+        # prior and persist it into the artifact manifest, so the next
+        # --spec auto picks from data, not the uncalibrated prior
+        gap = (1.0 - spec_cfg.keep if spec_cfg.draft == "layerskip"
+               else spec_cfg.draft_sparsity - args.target_sparsity)
+        calibration.add(cfg.name, spec_cfg.draft, gap,
+                        rep.spec["acceptance_rate"],
+                        weight=float(rep.spec["proposed"]))
+        if args.artifact:
+            deployed.update_artifact_extra(
+                args.artifact, {"spec_calibration": calibration.to_json()})
+            print(f"spec: measured acceptance "
+                  f"{rep.spec['acceptance_rate']} folded into the "
+                  f"calibration ({len(calibration.rows)} row(s)) and "
+                  "persisted to the artifact manifest")
     for rid in list(rep.outputs)[:3]:
         print(f"  {rid}:", rep.outputs[rid].tolist())
     if tracer is not None:
@@ -358,7 +516,10 @@ def main(argv=None):
                     "layer-indexed kernels over the stacked uniform envelope "
                     "(identical tokens)")
     ap.add_argument("--spec", default="",
-                    help="speculative decode: comma-joined k=INT, "
+                    help="speculative decode: 'auto' (family, k and knob "
+                    "from the simulated cost and the artifact's measured "
+                    "acceptance; scan when spec models a loss) or "
+                    "comma-joined k=INT, "
                     "draft=reprune|layerskip, draft_sparsity=FLOAT (reprune "
                     "knob: packs a second higher-sparsity tier), keep=FLOAT "
                     "(layerskip knob: the draft runs the nnz-ranked top keep "
@@ -368,8 +529,15 @@ def main(argv=None):
                     help="serving-artifact directory: boot from it when it "
                     "exists (no re-packing), else pack once and save there")
     ap.add_argument("--tile", default="",
-                    help="BKxBN packing tile (e.g. 16x16); required with "
-                    "--compressed unless --artifact boots a packing")
+                    help="BKxBN packing tile (e.g. 16x16); without it "
+                    "--compressed packs with the schedule search's "
+                    "per-projection tiles (or --autotune's measured one)")
+    ap.add_argument("--autotune", type=int, default=0, metavar="TOPN",
+                    help="with --compressed and no --tile: time the top-TOPN "
+                    "simulated tiles through the stacked block-sparse "
+                    "kernel on --device and pack (uniform) with the "
+                    "measured winner; the measurement is cached in the "
+                    "--artifact manifest and a boot reuses it")
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace-event JSON of the measured "
                     "run (phase spans, request lifecycle tracks, occupancy "

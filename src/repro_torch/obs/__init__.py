@@ -1,12 +1,16 @@
 """repro_torch.obs - observability for the serving stack.
 
-Two dependency-free cores:
+Two dependency-free cores and the gap tracker:
 
   * :mod:`trace` - thread-safe span tracer (context-manager spans, instant
     events, counter samples, per-thread tracks) exporting Chrome
     trace-event JSON loadable in Perfetto / ``chrome://tracing``;
   * :mod:`metrics` - labeled counter / gauge / histogram registry with
-    JSON snapshots.
+    JSON snapshots;
+  * :mod:`gap` - measured per-phase timings confronted with
+    ``core.perf_model`` / the ``repro_torch.sched`` simulator's
+    predictions, as the ``sim_vs_measured`` ratio (its heavy imports are
+    deferred into its functions).
 
 Both are disabled by default at near-zero cost: :data:`NULL_TRACER` and
 :data:`NULL_METRICS` are shared no-op singletons, so an un-instrumented
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import time
 
-from . import metrics, trace  # noqa: F401
+from . import gap, metrics, trace  # noqa: F401
 from .metrics import (MetricsRegistry, NullMetricsRegistry,  # noqa: F401
                       NULL_METRICS, ScopedMetrics,
                       validate_metrics_snapshot)
@@ -60,7 +64,7 @@ def phase_scope(tracer, metrics_reg, name: str, **args):
 
 __all__ = [
     "MetricsRegistry", "NullMetricsRegistry", "NULL_METRICS",
-    "ScopedMetrics", "NullTracer", "NULL_TRACER", "Tracer", "metrics",
+    "ScopedMetrics", "NullTracer", "NULL_TRACER", "Tracer", "gap", "metrics",
     "phase_scope", "trace", "validate_chrome_trace",
     "validate_chrome_trace_file", "validate_metrics_snapshot",
 ]

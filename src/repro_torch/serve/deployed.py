@@ -6,7 +6,8 @@
   ``layers.cim_matmul`` dispatches per leaf, so the same forward code serves
   both.
 * :func:`compress` runs every 2-D CIM projection (QKV/O, MLP, head) through
-  ``deploy_weight``.
+  ``deploy_weight``, with the per-projection tiles of a
+  :func:`default_schedule` (the MARS mapping search) or one given tile.
 * :func:`save_artifact` / :func:`load_artifact` are the offline artifact
   flow: quantize + prune + pack run once, the packed ServingParams lands on
   disk through ``train.checkpoint`` in the reference's format, and a
@@ -33,6 +34,9 @@ from ..device import DeviceLike
 from ..models import layers as L
 from ..models import registry, transformer
 from ..models.config import ModelConfig
+from ..sched.executor import NetworkSchedule, schedule_from_search
+from ..sched.graph import lm_graph
+from ..sched.search import search_mapping
 from ..train import checkpoint as ckpt
 
 # projections deployed per transformer block
@@ -91,6 +95,21 @@ def from_params(cfg: ModelConfig, params: dict) -> ServingParams:
         head_t=None if head is not None else params["embed"].T.contiguous())
 
 
+def default_schedule(cfg: ModelConfig, seq_len: int = 128,
+                     groups=(16, 32, 64), alphas=(16, 32, 64),
+                     sparsity_gs: float = 0.6,
+                     uniform: bool = False) -> NetworkSchedule:
+    """Mapping search over the model's CIM projection graph (numpy, on the
+    host): the returned schedule's per-layer (group, alpha) becomes the
+    serving (bk, bn). ``uniform=True`` restricts the search to tiles that
+    exactly divide every projection (the stacked-deployment envelope)."""
+    graph = lm_graph(cfg, seq_len=seq_len, sparsity_gs=sparsity_gs)
+    result = search_mapping(graph, w_bits=cfg.w_bits, a_bits=cfg.a_bits,
+                            groups=groups, alphas=alphas, uniform=uniform)
+    return schedule_from_search(graph, result, w_bits=cfg.w_bits,
+                                a_bits=cfg.a_bits)
+
+
 def _projection_shapes(sp: ServingParams) -> List[Tuple[int, int]]:
     """(d_in, d_out) of every 2-D projection compress() packs."""
 
@@ -109,31 +128,41 @@ def _projection_shapes(sp: ServingParams) -> List[Tuple[int, int]]:
 
 def compress(cfg: ModelConfig, params: dict,
              target_sparsity: Optional[float] = None,
+             schedule: Optional[NetworkSchedule] = None,
              tile: Optional[Tuple[int, int]] = None,
              uniform: bool = False) -> ServingParams:
     """Pack every CIM-mapped 2-D projection for the BSR kernel, on the
     params' device.
 
-    ``tile`` (default: the model's ``cim_alpha`` square) is clipped per
-    projection to exact divisors; ``uniform=True`` clips it once to the
-    largest tile dividing EVERY projection (head included), the envelope
+    ``schedule`` (from :func:`default_schedule`) supplies each projection's
+    tile, keyed ``blk{i}_{proj}``; a projection it does not name (the head:
+    ``lm_graph`` has no head node) takes ``tile``, or the model's
+    ``cim_alpha`` square. Tiles are clipped per projection to exact
+    divisors. ``uniform=True`` packs the whole network (head included)
+    with one tile: the schedule's ``uniform_tile`` (or ``tile``) clipped
+    once to the largest tile dividing EVERY projection, the envelope
     ``serve.stacked`` requires. ``target_sparsity=0`` packs every block."""
     sp = from_params(cfg, params)
+    tiles = {}
+    if schedule is not None:
+        tiles = {s.name: (s.group, s.alpha) for s in schedule.layers}
     fallback = tile if tile is not None else (cfg.cim_alpha, cfg.cim_alpha)
     if uniform:
-        fallback = D.uniform_fit_tile(_projection_shapes(sp), *fallback)
+        g, a = schedule.uniform_tile if schedule is not None else fallback
+        tiles, fallback = {}, D.uniform_fit_tile(_projection_shapes(sp), g, a)
 
-    def pack(w) -> D.DeployedWeight:
-        bk, bn = D.fit_tile(int(w.shape[-2]), int(w.shape[-1]), *fallback)
+    def pack(name: str, w) -> D.DeployedWeight:
+        g, a = tiles.get(name, fallback)
+        bk, bn = D.fit_tile(int(w.shape[-2]), int(w.shape[-1]), g, a)
         return D.deploy_weight(w, cfg.cim, bk=bk, bn=bn,
                                target_sparsity=target_sparsity)
 
-    for p in sp.layers:
+    for i, p in enumerate(sp.layers):
         for proj in PROJECTIONS:
             if getattr(p.get(proj), "ndim", 0) == 2:
-                p[proj] = pack(p[proj])
+                p[proj] = pack(f"blk{i}_{proj}", p[proj])
     if sp.head is not None:
-        sp.head = pack(sp.head)
+        sp.head = pack("head", sp.head)
     return sp
 
 

@@ -42,3 +42,13 @@ def test_no_source_file_names_jax_or_reference():
                         offenders.append((f, needle))
     assert not offenders, offenders
     assert len(list(pkgutil.walk_packages([PKG_DIR]))) > 0
+
+
+def test_schedule_search_modules_are_walked():
+    """The import walk above reaches the schedule-search slice's modules."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    for mod in ("core.perf_model", "sched", "sched.graph", "sched.allocate",
+                "sched.simulate", "sched.search", "sched.executor",
+                "sched.pricing", "sched.autotune", "obs.gap"):
+        assert f"repro_torch.{mod}" in names, mod

@@ -641,8 +641,7 @@ def test_cli_upgrades_a_single_tier_artifact(tmp_path, capsys):
     assert rep.spec["n_rounds"] > 0
 
 
-@pytest.mark.parametrize("arg,msg", [("auto", "not ported"),
-                                     ("k=x", "--spec expects"),
+@pytest.mark.parametrize("arg,msg", [("k=x", "--spec expects"),
                                      ("depth=3", "--spec expects"),
                                      ("k=0", "k must be >= 1")])
 def test_cli_spec_argument_errors(arg, msg):
