@@ -46,6 +46,14 @@ needed. Phases (any failure exits non-zero):
               longest view (more chunks than a cluster has CTAs) other
               launch plans bit for bit equal; the paged pass's row-by-row
               norm equal alone and in batches of 1 to NORM_ROWS rows;
+              the straight-through backward of fake_quant bit for bit
+              (both modes, bits 2/4/8, signed and unsigned, every (x,
+              grad) pair of f32 and bf16, x on and one step either side of
+              the clamp bounds, NaN, +-inf, misaligned views at odd
+              lengths); the SSD intra-chunk backward at the train phase's
+              mamba2-780m shape, the serving shape and SSD_SHAPES (f32
+              within SSD_BWD_TOL of each gradient's max |plain|, bf16 in
+              within 2e-2, each call repeated bit for bit);
   3. serve yi-6b - yi-6b at full width in bf16, depth cut to 4 layers,
               random weights from a seed, compressed (uniform 128x128 tile,
               60% tile sparsity) and served by BatchServer on the scan and
@@ -109,7 +117,8 @@ needed. Phases (any failure exits non-zero):
               decode-attention kernel at decode and verify rows over
               DA_VIEWS and the prefix-suffix row), and the per-launch
               device time of the block-sparse, fake_quant, ssd_intra and
-              decode-attention kernels;
+              decode-attention kernels; the two backward kernels at the
+              train phase's shapes;
   9. sched  - run after phase 6 (phase 8 times its tiles): the MARS
               schedule search at full width. default_schedule over
               full-depth yi-6b in a process of its own, started before
@@ -122,7 +131,23 @@ needed. Phases (any failure exits non-zero):
               the loop runtime (every launch at its projection's schedule
               tile), executor.verify_layer at each projection shape and
               obs.gap.kernel_gap on the card, and --spec auto over the
-              booted artifact (the scan run's tokens, spec or declined).
+              booted artifact (the scan run's tokens, spec or declined);
+ 10. train  - run after phase 9: QAT training (--cim w8a8, group lasso
+              1e-5, AdamW, f32) through repro_torch.launch.train.main
+              in-process, under torch.use_deterministic_algorithms(True):
+              yi-6b at full width cut to TRAIN_YI_LAYERS layers (30 steps
+              of 4 x 256 tokens) and mamba2-780m at full width and depth
+              (8 steps of 2 x 512); for each, one step's gradients against
+              the plain path (fake_quant swapped: bit for bit; mamba2's SSD
+              kernels swapped too, f32 dense mode: within TRAIN_GRAD_TOL),
+              the loss finite and falling, launch counts exact (every
+              projection's forward and backward through fake_quant and
+              fake_quant_bwd, every mamba2 layer's through both SSD
+              kernels), step ms and tokens/s, a SIGTERM after step STOP
+              (checkpoint and exit 0) and --resume reaching the straight
+              run's parameters and moments bit for bit, and one more step
+              profiled (phase 7); phase 8 then times both backward kernels
+              at these shapes.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -208,6 +233,36 @@ MAMBA_F32_TOL = 1e-3
 SSD_SHAPES = ((3, 5, 100, 20, 70), (2, 3, 9, 16, 64), (4, 1, 64, 32, 64),
               (2, 4, 600, 64, 64))
 SSD_F64_TOL = 1e-5
+# phase 2's SSD intra-chunk backward in f32: each gradient within this share
+# of its max |plain| (f32 sums in another order; the forward's bar)
+SSD_BWD_TOL = 1e-4
+
+# the train phase: QAT (--cim, w8a8, group lasso 1e-5) training through the
+# CLI in f32 with AdamW on TokenPipeline. yi-6b at full width, depth cut to
+# TRAIN_YI_LAYERS: AdamW holds 16 B a parameter with the gradient, and 2
+# layers are 0.87 G parameters (14 GB; the 64000 x 4096 embedding and head
+# are 0.52 G of them), 30 steps of 4 x 256 tokens. mamba2-780m at full width
+# and depth (0.86 G parameters), 8 steps of 2 x 512 tokens (two 256-token
+# chunks a row). Each run is stopped by SIGTERM after its STOP step and
+# resumed from that checkpoint. TRAIN_GRAD_TOL: the SSD kernels' gradients
+# against the plain path's at full depth in f32 dense mode, per leaf
+# (relative L2; f32 sums in another order through 48 layers).
+TRAIN_YI_LAYERS = 2
+TRAIN_YI_BATCH, TRAIN_YI_SEQ = 4, 256
+TRAIN_YI_ROWS = TRAIN_YI_BATCH * TRAIN_YI_SEQ
+TRAIN_COMMON = ["--cim", "--w-bits", "8", "--a-bits", "8", "--lambda-g",
+                "1e-5", "--opt", "adamw", "--dtype", "float32", "--seed", "0",
+                "--ckpt-every", "1000"]
+TRAIN_YI = ["--arch", "yi-6b", "--batch", str(TRAIN_YI_BATCH), "--seq",
+            str(TRAIN_YI_SEQ), "--steps", "30", "--log-every", "5",
+            *TRAIN_COMMON]
+TRAIN_YI_STOP = 20
+TRAIN_MAMBA_BATCH, TRAIN_MAMBA_SEQ = 2, 512
+TRAIN_MAMBA = ["--arch", "mamba2-780m", "--batch", str(TRAIN_MAMBA_BATCH),
+               "--seq", str(TRAIN_MAMBA_SEQ), "--steps", "8", "--log-every",
+               "2", *TRAIN_COMMON]
+TRAIN_MAMBA_STOP = 5
+TRAIN_GRAD_TOL = 1e-3
 
 # card vs CPU (phase 3): a greedy divergence is a fault where the card's
 # top-2 logit margin exceeds the bf16 kernel tolerance (the model is bf16)
@@ -2007,16 +2062,20 @@ def profile_run(torch, label, run, kernels, per_call=None):
         extra = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    rows = [e for e in prof.key_averages() if dev_us(e) > 0]
+    # the device's own rows: an operator's row carries the device time of
+    # the kernels it launched, which have rows of their own
+    events = [e for e in rows if e.device_type == DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:6]
     out = {"run": label, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / (wall * 1e3), **extra,
-           "copy_ms_calls": [sum(dev_us(e) for e in events
+           "copy_ms_calls": [sum(dev_us(e) for e in rows
                                  if e.key == "aten::copy_") / 1e3,
-                             sum(e.count for e in events
+                             sum(e.count for e in rows
                                  if e.key == "aten::copy_")],
            **{f"{name}_ms": sum(dev_us(e) for e in events if sym in e.key)
               / 1e3 for name, sym in kernels.items()},
@@ -2104,10 +2163,11 @@ def time_ms(torch, fn, flush, iters=30, warm=3):
 
 
 def device_split(torch, fn, flush, names, iters=10):
-    """Mean device time (ms) of each kernel whose symbol holds one of
-    ``names`` over ``iters`` calls of ``fn``, L2 flushed before each, from
-    torch.profiler: 0 for a kernel the calls did not launch (one split: no
-    reduce), "not measured" for all if the profiler saw no device time."""
+    """Mean device time (ms) per launch of each kernel whose symbol holds
+    one of ``names`` over ``iters`` calls of ``fn``, L2 flushed before
+    each, from torch.profiler (over the launches the profiler recorded): 0
+    for a kernel the calls did not launch (one split: no reduce), "not
+    measured" for all if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2120,8 +2180,13 @@ def device_split(torch, fn, flush, names, iters=10):
               if getattr(e, "self_device_time_total", 0.0) > 0]
     if not events:
         return {name: "not measured" for name in names}
-    return {name: sum(e.self_device_time_total for e in events
-                      if name in e.key) / iters / 1e3 for name in names}
+    out = {}
+    for name in names:
+        mine = [e for e in events if name in e.key]
+        launches = sum(e.count for e in mine)
+        out[name] = (sum(e.self_device_time_total for e in mine) / launches
+                     / 1e3 if launches else 0.0)
+    return out
 
 
 def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
@@ -2414,7 +2479,452 @@ def times_quant_matmul(torch, QM, cfg, mlp, bench):
     return rows
 
 
+def check_fake_quant_bwd(torch, FQ):
+    """Phase 2: the straight-through backward kernel against its plain
+    version, bit for bit (NaN where the plain version has NaN): both modes
+    (clip: eq. 5 activations; noclip: eq. 8 weights, x unread), bits
+    2/4/8, signed and unsigned, every (x, grad) pair of f32 and bf16. x
+    holds 1.5-scaled normals salted with both clamp bounds, the values one
+    step inside and outside them, NaN and +-inf; grad holds normals salted
+    with +-inf; then views off a 16-byte boundary at odd lengths."""
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    dtypes = (torch.float32, torch.bfloat16)
+    n = 0
+
+    def salted(shape, lo, dt):
+        x = torch.randn(shape, generator=gen, device=DEV) * 1.5
+        flat = x.view(-1)
+        if flat.numel() > 16:
+            tiny = torch.finfo(torch.float32).tiny
+            one = torch.tensor(1.0, device=DEV)
+            edges = [lo, 1.0, float("nan"), float("inf"), -float("inf"),
+                     lo - (2 ** -7 if lo else tiny),
+                     lo + (2 ** -9 if lo else tiny),
+                     float(torch.nextafter(one, 2 * one)) if dt ==
+                     torch.float32 else 1 + 2 ** -7,
+                     float(torch.nextafter(one, 0 * one)) if dt ==
+                     torch.float32 else 1 - 2 ** -9]
+            for k, v in enumerate(edges):
+                flat[k::len(edges) + 7] = v
+        return x.to(dt)
+
+    def compare(g, x, bits, signed, ste, dt, what):
+        nonlocal n
+        got = FQ.fake_quant_bwd(g, x, bits, signed, ste, dt)
+        torch.cuda.synchronize()
+        want = FQ.fake_quant_bwd_plain(g, x, bits, signed, ste, dt)
+        assert got.dtype == dt and got.shape == g.shape, what
+        assert torch.equal(got.isnan(), want.isnan()), what
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), what
+        n += 1
+
+    shapes = [(1,), (3, 100, 130), (TRAIN_YI_ROWS, 4096), (4096, 1536),
+              (1_000_003,)]
+    for bits in (2, 4, 8):
+        for signed in (False, True):
+            lo = -1.0 if signed else 0.0
+            for dt in dtypes:
+                for gdt in dtypes:
+                    for shape in shapes:
+                        x = salted(shape, lo, dt)
+                        g = torch.randn(shape, generator=gen, device=DEV)
+                        g.view(-1)[5::211] = float("inf")
+                        g.view(-1)[6::223] = -float("inf")
+                        g = g.to(gdt)
+                        for ste in FQ.STE_MODES:
+                            compare(g, x if ste == "clip" else None, bits,
+                                    signed, ste, dt,
+                                    (bits, signed, dt, gdt, shape, ste))
+    odd = 0
+    for length in (7, 4099, 65_537, 1_000_003):
+        xb = salted((length + 3,), -1.0, torch.float32)
+        gb = torch.randn((length + 5,), generator=gen, device=DEV)
+        for dt in dtypes:
+            for gdt in dtypes:
+                for k in (1, 3):
+                    x = xb.to(dt)[k:k + length]
+                    g = gb.to(gdt)[k + 1:k + 1 + length]
+                    assert x.data_ptr() % 16 != 0
+                    for ste in FQ.STE_MODES:
+                        compare(g, x if ste == "clip" else None, 8, True,
+                                ste, dt, ("misaligned", length, k, dt, gdt))
+                        odd += 1
+    log(f"[kernel] fake_quant_bwd: {n} comparisons bit for bit (tolerance "
+        "0) over both straight-through modes, bits 2/4/8, signed and "
+        f"unsigned, every (x, grad) pair of f32 and bf16, {odd} of them on "
+        "misaligned views at odd lengths; x salted with both bounds, one "
+        "step inside and outside them, NaN and +-inf")
+    return 0.0
+
+
+def check_ssd_intra_bwd(torch, SI, cfg):
+    """Phase 2: the SSD intra-chunk backward kernel against its plain
+    version (autograd through ``ssd_intra_chunk_plain``) at the training
+    shape of the train phase's mamba2-780m run, the serving shape and
+    SSD_SHAPES: da, db, dc and dx within SSD_BWD_TOL (f32) or 2e-2 (bf16
+    b, c, x) of each gradient's max |plain|, each call repeated bit for
+    bit. Returns the largest |kernel - plain| of the f32 cases."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    H, l, N = cfg.n_ssm_heads, cfg.ssm_chunk, cfg.ssm_state
+    P = cfg.d_inner // H
+    train_shape = (TRAIN_MAMBA_BATCH * TRAIN_MAMBA_SEQ // l, H, l, N, P)
+    serve_shape = (MAMBA_BATCH * MAMBA_PROMPT // l, H, l, N, P)
+    err, rel = 0.0, {}
+    for C, H_, l_, N_, P_ in (train_shape, serve_shape) + SSD_SHAPES:
+        a = -torch.nn.functional.softplus(
+            torch.randn((C, H_, l_), generator=gen, device=DEV))
+        b, c = (torch.randn((C, l_, N_), generator=gen, device=DEV) * 0.3
+                for _ in range(2))
+        x = torch.randn((C, l_, H_, P_), generator=gen, device=DEV) * 0.3
+        dy = torch.randn((C, l_, H_, P_), generator=gen, device=DEV)
+        for dt, tol in ((torch.float32, SSD_BWD_TOL),
+                        (torch.bfloat16, 2e-2)):
+            args = (a, b.to(dt), c.to(dt), x.to(dt))
+            what = f"ssd_intra_bwd {(C, H_, l_, N_, P_)} {dt}"
+            got = SI.ssd_intra_chunk_bwd(*args, dy)
+            again = SI.ssd_intra_chunk_bwd(*args, dy)
+            torch.cuda.synchronize()
+            want = SI.ssd_intra_chunk_bwd_plain(*args, dy)
+            for name, g, g2, w, t in zip(("da", "db", "dc", "dx"), got,
+                                         again, want, args):
+                assert torch.equal(g, g2), f"{what} {name}: repeat"
+                assert g.dtype == t.dtype, f"{what} {name}: dtype"
+                d = float((g.float() - w.float()).abs().max())
+                r = d / float(w.float().abs().max())
+                assert r <= tol, f"{what} {name}: {r:.3e} > {tol}"
+                key = f"{name} {str(dt)[6:]}"
+                rel[key] = max(rel.get(key, 0.0), r)
+                if dt == torch.float32:
+                    err = max(err, d)
+            del got, again, want
+    log(f"[kernel] ssd_intra_chunk_bwd at {train_shape} (train), "
+        f"{serve_shape} (serve) and {list(SSD_SHAPES)} (C, H, l, N, P): "
+        f"within tolerance (f32 {SSD_BWD_TOL}, bf16 2e-2 of max |plain|), "
+        "each call repeated bit for bit; max |kernel - plain| / max "
+        "|plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in sorted(
+            rel.items())))
+    return err
+
+
+def train_launches(cfg, steps) -> dict:
+    """The launches of ``steps`` QAT training steps (one microbatch each):
+    fake_quant on the activations and the weight of every projection (7 a
+    dense layer, in_proj and out_proj a mamba2 layer) and of the head in
+    every forward, each layer's twice under ``remat`` (run again in the
+    backward), and fake_quant_bwd once for each in the backward;
+    ssd_intra_chunk once a mamba2 layer a forward, its backward once."""
+    proj = 7 if cfg.family == "dense" else 2
+    again = 2 if cfg.remat in ("full", "dots") else 1
+    ssm = cfg.family == "ssm"
+    return {"bsr_matmul": 0, "bsr_matmul_stacked": 0, "quant_matmul": 0,
+            "decode_attention": 0,
+            "fake_quant": 2 * (proj * cfg.n_layers * again + 1) * steps,
+            "fake_quant_bwd": 2 * (proj * cfg.n_layers + 1) * steps,
+            "ssd_intra_chunk": cfg.n_layers * again * steps * ssm,
+            "ssd_intra_chunk_bwd": cfg.n_layers * steps * ssm}
+
+
+def train_counts(kern) -> dict:
+    _, FQ, SI, _, _ = kern
+    return dict(launch_counts(kern), fake_quant_bwd=FQ.BWD_LAUNCHES,
+                ssd_intra_chunk_bwd=SI.BWD_LAUNCHES)
+
+
+def grad_gap(torch, g, want):
+    """Per leaf, |g - want|_2 / |want|_2; the largest and its leaf."""
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.optimizer import leaves
+    gaps = {k: float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp_min(1e-300))
+            for (k, a), (_, b) in zip(flatten(g), flatten(want))}
+    worst = max(gaps, key=gaps.get)
+    assert len(leaves(g)) == len(gaps)
+    return gaps[worst], worst
+
+
+def train_grads(torch, kern, cfg, tokens):
+    """One step's gradients on the kernel path against the plain path
+    (wrappers swapped for their plain versions, every other op unchanged),
+    on fresh weights from seed 0: with fake_quant (forward and backward)
+    swapped the gradients must be equal bit for bit, and with the SSD
+    kernels swapped too, in f32 cim_mode "dense" on the same weights (no
+    eq. 5 level to flip), within TRAIN_GRAD_TOL per leaf (relative L2):
+    the SSD kernels sum in f32 in another order. The QAT path with both
+    swapped is printed: a one-ulp difference flips an eq. 5 level, which
+    moves every gradient upstream of it."""
+    from repro_torch.models import registry
+    from repro_torch.train import trainer as TR
+    from repro_torch.train.optimizer import leaves
+    _, FQ, SI, _, _ = kern
+    params = registry.model_fns(cfg).init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    params = TR.train_state(TR.TrainConfig(), params,
+                            opt_state={})["params"]
+    batch = {"tokens": tokens}
+
+    def grads(c):
+        (_, ce), g = TR.value_and_grad(TR.make_loss_fn(c), params, batch)
+        return float(ce), g
+
+    out = {}
+    ce, g = grads(cfg)
+    saved = FQ.fake_quant, SI.ssd_intra_chunk
+    try:
+        FQ.fake_quant = FQ.fake_quant_plain
+        ce_fq, g_fq = grads(cfg)
+        same = all(torch.equal(a, b) for a, b in zip(
+            leaves(g), leaves(g_fq)))
+        assert same and ce == ce_fq, (cfg.name, "fake_quant swapped")
+        out["fake_quant_swapped"] = "bit for bit"
+        del g_fq
+        if cfg.family == "ssm":
+            SI.ssd_intra_chunk = SI.ssd_intra_chunk_plain
+            _, g_plain = grads(cfg)
+            out["qat_all_swapped_max_rel_l2"] = grad_gap(torch, g, g_plain)
+            del g_plain
+            dense = dataclasses.replace(cfg, cim_mode="dense")
+            SI.ssd_intra_chunk = saved[1]
+            FQ.fake_quant = saved[0]
+            _, g_k = grads(dense)
+            FQ.fake_quant = FQ.fake_quant_plain
+            SI.ssd_intra_chunk = SI.ssd_intra_chunk_plain
+            _, g_p = grads(dense)
+            gap, leaf = grad_gap(torch, g_k, g_p)
+            assert gap <= TRAIN_GRAD_TOL, (cfg.name, leaf, gap)
+            out["dense_all_swapped_max_rel_l2"] = [gap, leaf]
+            del g_k, g_p
+    finally:
+        FQ.fake_quant, SI.ssd_intra_chunk = saved
+    del g, params
+    return out
+
+
+def train(torch, kern, card):
+    """Phase "train": ``repro_torch.launch.train.main(argv)`` in-process,
+    QAT (--cim) with the group lasso, AdamW, f32, on TokenPipeline, for
+    yi-6b at full width with depth cut to TRAIN_YI_LAYERS and mamba2-780m
+    at full width and depth (each config's depth cut by wrapping
+    ``registry.get_config``, which the CLI reads), under
+    ``torch.use_deterministic_algorithms(True)``. Each model:
+
+    a. one step's gradients against the plain path (``train_grads``);
+    b. a straight run: the loss finite and falling (the mean of the last
+       5 steps under the first step's), launch counts exact
+       (``train_launches``: every projection's forward and backward
+       through fake_quant and fake_quant_bwd, every mamba2 layer's
+       through both SSD kernels), step ms and tokens/s;
+    c. the same run stopped by SIGTERM after its step ``stop`` (it
+       checkpoints and exits 0), then ``--resume``: the same losses from
+       there and the same parameters and moments as the straight run, bit
+       for bit;
+    d. one more step profiled (torch.profiler): the busy share and the top
+       kernels.
+
+    Checkpoints go to a temporary directory, removed afterwards. Returns
+    the launch counts of the straight runs."""
+    import shutil
+    import signal
+    import tempfile
+    from repro_torch.launch import train as CLI
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import leaves
+    counts = {}
+    get_config = registry.get_config
+    make_step = CLI.make_train_step
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch, argv, stop, layers in (
+                ("yi-6b", TRAIN_YI, TRAIN_YI_STOP, TRAIN_YI_LAYERS),
+                ("mamba2-780m", TRAIN_MAMBA, TRAIN_MAMBA_STOP, None)):
+            registry.get_config = (
+                (lambda a, **k: get_config(a, **dict(k, n_layers=layers)))
+                if layers else get_config)
+            cfg = registry.get_config(
+                arch, dtype="float32", cim_mode="qat", w_bits=8, a_bits=8,
+                lambda_g=float(argv[argv.index("--lambda-g") + 1]),
+                cim_alpha=16, cim_n=16)
+            steps = int(argv[argv.index("--steps") + 1])
+            batch = int(argv[argv.index("--batch") + 1])
+            seq = int(argv[argv.index("--seq") + 1])
+            tmp = tempfile.mkdtemp(prefix=f"train-{arch}-")
+            rec = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+                   "seq": seq, "steps": steps, "argv": " ".join(argv)}
+            try:
+                toks = torch.as_tensor(TokenPipeline(
+                    cfg.vocab, batch, seq, seed=0).next_batch()["tokens"],
+                    device=DEV)
+                t0 = time.perf_counter()
+                rec["grads"] = train_grads(torch, kern, cfg, toks)
+                rec["grads_s"] = time.perf_counter() - t0
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                reset_launches(kern)
+                log(f"[train] {arch}: main({' '.join(argv)})")
+                t0 = time.perf_counter()
+                straight = CLI.main(argv + ["--ckpt-dir", f"{tmp}/a"])
+                torch.cuda.synchronize()
+                rec["wall_s"] = time.perf_counter() - t0
+                counts[f"train {arch}"] = got = train_counts(kern)
+                want = train_launches(cfg, steps)
+                assert got == want, (arch, got, want)
+                losses = straight.losses
+                assert all(math.isfinite(v) for v in losses), losses
+                assert statistics.mean(losses[-5:]) < losses[0], losses
+                n_params = sum(p.numel() for p in leaves(
+                    straight.state["params"]))
+                steady = statistics.median(straight.step_s[1:])
+                rec.update(params=n_params, losses=losses,
+                           first_step_s=straight.step_s[0],
+                           step_ms_median=steady * 1e3,
+                           tokens_per_s=batch * seq / steady,
+                           peak_mem_gb=torch.cuda.max_memory_allocated()
+                           / 2 ** 30, launches=got)
+                final = [t.detach().clone() for t in
+                         leaves(straight.state["params"])
+                         + leaves(straight.state["opt"])]
+                del straight
+                shutil.rmtree(f"{tmp}/a")
+                torch.cuda.empty_cache()
+
+                def stopping(c, t):
+                    step = make_step(c, t)
+
+                    def run(state, b):
+                        out = step(state, b)
+                        if state["step"] == stop:
+                            signal.raise_signal(signal.SIGTERM)
+                        return out
+                    return run
+
+                CLI.make_train_step = stopping
+                try:
+                    CLI.main(argv + ["--ckpt-dir", f"{tmp}/b"])
+                    raise AssertionError(f"{arch}: SIGTERM did not stop it")
+                except SystemExit as e:
+                    assert e.code == 0, e.code
+                finally:
+                    CLI.make_train_step = make_step
+                resumed = CLI.main(argv + ["--ckpt-dir", f"{tmp}/b",
+                                           "--resume"])
+                assert resumed.start_step == stop
+                assert resumed.losses == losses[stop:], (resumed.losses,
+                                                         losses)
+                after = (leaves(resumed.state["params"])
+                         + leaves(resumed.state["opt"]))
+                assert all(torch.equal(a, b) for a, b in zip(final, after))
+                rec["resume"] = (f"SIGTERM after step {stop}, --resume to "
+                                 f"{steps}: parameters and moments bit for "
+                                 "bit equal to the straight run's")
+                del final, after
+                log(json.dumps({"train": rec}))
+                profile_train(torch, cfg, resumed.state, toks)
+                del resumed
+            finally:
+                registry.get_config = get_config
+                shutil.rmtree(tmp, ignore_errors=True)
+                torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def profile_train(torch, cfg, state, tokens):
+    """Phase 7 for training: one more optimizer step of ``state`` (warmed
+    up by the runs before it) under torch.profiler."""
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import trainer as TR
+    tcfg = TR.TrainConfig(opt=OPT.OptConfig(lr=3e-3, warmup_steps=10,
+                                            total_steps=100))
+    step = TR.make_train_step(cfg, tcfg)
+    profile_run(torch, f"{cfg.name} train step ({cfg.n_layers} layers)",
+                lambda: {"loss": float(step(state, {"tokens": tokens})[1][
+                    "loss"])},
+                {"fake_quant_fwd": "fake_quant_kernel",
+                 "fake_quant_bwd": "fake_quant_bwd_kernel",
+                 "ssd_intra_fwd": "ssd_intra",
+                 "ssd_intra_bwd": "ssd_bwd_",
+                 "gemm": "gemm"})
+
+
+def times_train(torch, kern, cfg_yi, cfg_mamba):
+    """Phase 8: the two backward kernels at the train phase's shapes, in
+    f32: fake_quant_bwd on yi-6b's widest activation (B S, d_ff) in the
+    clip mode and its w_gate weight (d_model, d_ff) in the noclip mode;
+    the SSD intra-chunk backward at the mamba2-780m training shape. Kernel
+    ms (CUDA events, L2 flushed), the least time for the same work, the
+    plain version's ms, no library call (no one PyTorch call computes
+    either), the per-launch device ms."""
+    _, FQ, SI, _, _ = kern
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    rows = []
+    for name, shape, ste in (
+            ("act train", (TRAIN_YI_ROWS, cfg_yi.d_ff), "clip"),
+            ("weight train", (cfg_yi.d_model, cfg_yi.d_ff), "noclip")):
+        x = torch.randn(shape, generator=gen, device=DEV)
+        g = torch.randn(shape, generator=gen, device=DEV)
+        xs = x if ste == "clip" else None
+        # grad read and grad_in written (and x read in the clip mode), 4
+        # bytes each; 2 multiplies, and in the clip mode 4 compares and a
+        # multiply by the slope's mask, each an f32 operation
+        reads = 2 if ste == "clip" else 1
+        b_ms, b_by = bound_ms(x.numel() * 4 * (reads + 1),
+                              x.numel() * (7 if ste == "clip" else 2))
+        run = lambda: FQ.fake_quant_bwd(g, xs, 8, True, ste, torch.float32)
+        row = {"shape": f"fake_quant_bwd {name}", "entry": "fake_quant_bwd",
+               "dims": list(shape), "dtype": f"float32, {ste}",
+               "kernel_ms": time_ms(torch, run, flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": time_ms(torch, lambda: FQ.fake_quant_bwd_plain(
+                   g, xs, 8, True, ste, torch.float32), flush),
+               "library_ms": None,
+               "device_ms": device_split(torch, run, flush, (
+                   "fake_quant_bwd",))["fake_quant_bwd"]}
+        rows.append(row)
+        log(json.dumps(row))
+    H, l, N = cfg_mamba.n_ssm_heads, cfg_mamba.ssm_chunk, cfg_mamba.ssm_state
+    P = cfg_mamba.d_inner // H
+    C = TRAIN_MAMBA_BATCH * TRAIN_MAMBA_SEQ // l
+    a = -torch.nn.functional.softplus(torch.randn((C, H, l), generator=gen,
+                                                  device=DEV))
+    b, c = (torch.randn((C, l, N), generator=gen, device=DEV)
+            for _ in range(2))
+    x = torch.randn((C, l, H, P), generator=gen, device=DEV)
+    dy = torch.randn((C, l, H, P), generator=gen, device=DEV)
+    # the least work over the causal pairs i >= j, l (l + 1) / 2 of them:
+    # S = C B^T (N multiply-adds a pair), dM = dy x^T and dx = M^T dy (P
+    # each a pair and head), dC = dS B and dB = dS^T C (N each a pair), 2
+    # FLOPs a multiply-add, f32 at the CUDA cores' rate; a, b, c, x, dy
+    # read once and da, db, dc, dx written once, f32
+    pairs = l * (l + 1) // 2
+    nbytes = 4 * (2 * C * H * l + 4 * C * l * N + 3 * C * l * H * P)
+    flops = 2 * C * pairs * (3 * N + 2 * H * P)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    run = lambda: SI.ssd_intra_chunk_bwd(a, b, c, x, dy)
+    row = {"shape": "ssd_intra_bwd train", "entry": "ssd_intra_chunk_bwd",
+           "dims": {"C": C, "H": H, "l": l, "N": N, "P": P},
+           "dtype": "float32",
+           "kernel_ms": time_ms(torch, run, flush),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "plain_ms": time_ms(torch, lambda: SI.ssd_intra_chunk_bwd_plain(
+               a, b, c, x, dy), flush, iters=10),
+           "library_ms": None,
+           "device_ms": device_split(torch, run, flush, (
+               "ssd_bwd_scores", "ssd_bwd_head", "ssd_bwd_sum_heads",
+               "ssd_bwd_bc"))}
+    rows.append(row)
+    log(json.dumps(row))
+    return rows
+
+
 def main() -> int:
+    # the train phase runs under torch.use_deterministic_algorithms, whose
+    # cuBLAS needs a fixed workspace, read when cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2429,7 +2939,7 @@ def main() -> int:
 
 
 def run_all(torch, search) -> int:
-    """Phases 1-9 (see the module docstring); ``search`` is the full-depth
+    """Phases 1-10 (see the module docstring); ``search`` is the full-depth
     schedule search's process, read by phase 9."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import quant as Q
@@ -2477,6 +2987,8 @@ def run_all(torch, search) -> int:
     max_err["ssd_intra_chunk"] = check_ssd_intra(torch, SI, mcfg)
     max_err["quant_matmul"] = check_quant_matmul(torch, QM)
     max_err["decode_attention"] = check_decode_attention(torch, DA, cfg)
+    max_err["fake_quant_bwd"] = check_fake_quant_bwd(torch, FQ)
+    max_err["ssd_intra_chunk_bwd"] = check_ssd_intra_bwd(torch, SI, mcfg)
 
     log(f"[serve] yi-6b at full width ({cfg.d_model} wide, {cfg.n_heads}/"
         f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
@@ -2513,6 +3025,7 @@ def run_all(torch, search) -> int:
     counts.update(cli(torch, kern, card))
     sched_counts, sched_tiles = sched(torch, kern, card, search)
     counts.update(sched_counts)
+    counts.update(train(torch, kern, card))
 
     profile_serve(torch, cfg, sp)
     profile_spec(torch, cfg, sp, draft)
@@ -2523,17 +3036,22 @@ def run_all(torch, search) -> int:
                          + [("the masked path (bn = 8)", (8, 8))])
             + times_mamba(torch, kern, mcfg, mparams)
             + times_quant_matmul(torch, QM, cfg, mlp, bench)
-            + times_decode_attention(torch, DA, cfg))
+            + times_decode_attention(torch, DA, cfg)
+            + times_train(torch, kern, registry.get_config("yi-6b"), mcfg))
     pick = {"bsr_matmul_stacked": "w_gate decode", "bsr_matmul": "head decode",
             "fake_quant": "fake_quant act prefill",
             "ssd_intra_chunk": "ssd_intra serve",
             "quant_matmul": "quant_matmul w_gate decode",
-            "decode_attention": f"decode_attention decode {DA_VIEWS[0]}"}
+            "decode_attention": f"decode_attention decode {DA_VIEWS[0]}",
+            "fake_quant_bwd": "fake_quant_bwd act train",
+            "ssd_intra_chunk_bwd": "ssd_intra_bwd train"}
     source = {"bsr_matmul_stacked": "bsr_matmul.cu",
               "bsr_matmul": "bsr_matmul.cu", "fake_quant": "fake_quant.cu",
               "ssd_intra_chunk": "ssd_intra.cu",
               "quant_matmul": "quant_matmul.cu",
-              "decode_attention": "decode_attention.cu"}
+              "decode_attention": "decode_attention.cu",
+              "fake_quant_bwd": "fake_quant.cu",
+              "ssd_intra_chunk_bwd": "ssd_intra_bwd.cu"}
     replaces = {"bsr_matmul": "src/repro/kernels/cim_bsr_matmul.py:83",
                 "bsr_matmul_stacked": "src/repro/kernels/cim_bsr_matmul.py:138",
                 "fake_quant": "src/repro/kernels/fake_quant.py:28",
@@ -2541,7 +3059,11 @@ def run_all(torch, search) -> int:
                 "quant_matmul": "src/repro/kernels/quant_matmul.py:40",
                 # no Pallas kernel: the reference's XLA attention of the
                 # paged pass (decode_attention_multi)
-                "decode_attention": "src/repro/models/layers.py:281"}
+                "decode_attention": "src/repro/models/layers.py:281",
+                # no Pallas kernel: JAX's autodiff of the reference's plain
+                # jnp (round_ste and jnp.clip; the SSD's intra-chunk einsum)
+                "fake_quant_bwd": "src/repro/core/quant.py:45",
+                "ssd_intra_chunk_bwd": "src/repro/models/ssm.py:29"}
     kernels = []
     for entry in pick:
         row = next(r for r in rows if r["shape"] == pick[entry])

@@ -10,6 +10,10 @@
   ``{"packed": [{"blocks", "scales", "row_idx", "nnz", "density"}, ...],
   "d_in", "d_out", "bits"}``. Serving the int8 packing carried across is
   exact: no level is recomputed.
+* :func:`train_state_from_numpy` takes a train state as the reference's
+  ``init_train_state`` makes it (``{"params", "opt": {"m"[, "v"]},
+  "step"}``) after ``np.asarray`` on every leaf, so both trainers can
+  start from the same state.
 
 bfloat16 arrays arrive as the ml_dtypes ``bfloat16`` numpy type, which
 ``torch.from_numpy`` rejects; they cross through a ``uint16`` view.
@@ -74,3 +78,14 @@ def serving_params_from_numpy(tree: dict, cfg: ModelConfig,
         embed=_tree(tree["embed"], dev), final_ln=_tree(tree["final_ln"], dev),
         layers=_tree(tree["layers"], dev), head=_tree(tree.get("head"), dev),
         head_t=_tree(tree.get("head_t"), dev))
+
+
+def train_state_from_numpy(tree: dict, cfg: ModelConfig,
+                           device: DeviceLike = None) -> dict:
+    """A train state (numpy leaves) -> the port's on ``device``: params
+    that require a gradient, the moments, ``step`` as a Python int."""
+    from .train.trainer import TrainConfig, train_state
+    dev = resolve_device(device)
+    return train_state(TrainConfig(), params_from_numpy(tree["params"], cfg,
+                                                        dev),
+                       _tree(tree["opt"], dev), int(np.asarray(tree["step"])))

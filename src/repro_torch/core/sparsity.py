@@ -21,11 +21,20 @@ class SparsityConfig:
     target_sparsity: float = 0.95  # pruning threshold selection
 
 
+def _pad_to_multiple(w: torch.Tensor, axis: int, multiple: int
+                     ) -> torch.Tensor:
+    """Zero-pad ``axis`` of ``w`` up to a multiple of ``multiple``."""
+    pad = (-w.shape[axis]) % multiple
+    if pad == 0:
+        return w
+    pads = [0, 0] * w.dim()
+    pads[2 * (w.dim() - 1 - axis) + 1] = pad  # F.pad lists the last axis first
+    return F.pad(w, pads)
+
+
 def tile_view(w2d: torch.Tensor, n: int, alpha: int) -> torch.Tensor:
     """(d_in, d_out) -> (d_in/n, d_out/alpha, n, alpha) tile view (padded)."""
-    pad_in, pad_out = (-w2d.shape[0]) % n, (-w2d.shape[1]) % alpha
-    if pad_in or pad_out:
-        w2d = F.pad(w2d, (0, pad_out, 0, pad_in))
+    w2d = _pad_to_multiple(_pad_to_multiple(w2d, 0, n), 1, alpha)
     di, do = w2d.shape
     return w2d.reshape(di // n, n, do // alpha, alpha).permute(0, 2, 1, 3)
 
@@ -34,6 +43,13 @@ def tile_norms(w2d: torch.Tensor, n: int, alpha: int) -> torch.Tensor:
     """L2 norm of every (n x alpha) tile -> (d_in/n, d_out/alpha)."""
     t = tile_view(w2d, n, alpha)
     return torch.sqrt((t * t).sum(dim=(-2, -1)) + 1e-24)
+
+
+def group_lasso_2d(w2d: torch.Tensor, n: int, alpha: int) -> torch.Tensor:
+    """eq. 4 regularizer for a 2-D weight: the sum of its tile L2 norms
+    (``n = 1`` is eq. 3). The ``1e-24`` inside each norm's square root
+    keeps an all-zero tile's gradient finite."""
+    return tile_norms(w2d, n, alpha).sum()
 
 
 def _quantile_linear(v: torch.Tensor, q: float) -> torch.Tensor:

@@ -50,13 +50,17 @@ def bsr_matmul_stacked(x: torch.Tensor, blocks: torch.Tensor,
 
 
 def fake_quant(x: torch.Tensor, bits: int, signed: bool = False,
-               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               out_dtype: Optional[torch.dtype] = None,
+               ste: str = "clip") -> torch.Tensor:
     """eq. 5 / eq. 8 fake quant on the kernel, ``out_dtype`` (default
     ``x.dtype``) out; ``bits >= 32`` leaves the values as they are, as
-    ``core.quant`` does (cast to ``out_dtype`` when one is given)."""
+    ``core.quant`` does (cast to ``out_dtype`` when one is given). Its
+    gradient is the straight-through rule ``ste``: "clip" for eq. 5's
+    clamped activations, "noclip" for eq. 8's weights, which the reference
+    rounds unclamped (``kernels/fake_quant.py``)."""
     if bits >= 32:
         return x if out_dtype is None else x.to(out_dtype)
-    return _fq.fake_quant(x, bits, signed, out_dtype)
+    return _fq.fake_quant(x, bits, signed, out_dtype, ste)
 
 
 def quant_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor

@@ -23,6 +23,14 @@ shapes and the SM count. The wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts the launches, ``LAUNCHES_BY_PATH`` the same launches by
 operand type and load path.
+
+Gradients. When an operand needs a gradient and grad mode is on, the
+CUDA path runs through an autograd Function whose backward is
+``ssd_intra_chunk_bwd``, the kernel of ``csrc/ssd_intra_bwd.cu`` (f32 math,
+a fixed summation order, no atomics: each call repeats bit for bit;
+``BWD_LAUNCHES`` counts its calls). The CPU path is plain torch, so
+autograd differentiates the plain version itself, and
+``ssd_intra_chunk_bwd_plain`` is that gradient as a function.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 from . import _build
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 LAUNCHES_BY_PATH = {"bf16 aligned": 0, "bf16 masked": 0, "f32 aligned": 0,
                     "f32 masked": 0}
 MAX_LEN = 1024  # l of at most 4 passes over the kernel's 256 S columns
@@ -52,6 +61,7 @@ MIN_BLOCKS = 2  # the launch bounds' resident blocks per SM (128 registers)
 _SMEM_PER_SM, _SMEM_RESERVED = 233472, 1024  # per SM, and kept per block
 
 _LIB = None
+_BWD_LIB = None
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -170,8 +180,8 @@ def split_hi_lo(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, BWD_LAUNCHES
+    LAUNCHES = BWD_LAUNCHES = 0
     for path in LAUNCHES_BY_PATH:
         LAUNCHES_BY_PATH[path] = 0
 
@@ -188,6 +198,21 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_intra_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = _build.load("ssd_intra_bwd")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_intra_bwd_launch.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.ssd_intra_bwd_launch.restype = i
+        lib.ssd_intra_bwd_smem_bytes.argtypes = [i, i]
+        lib.ssd_intra_bwd_smem_bytes.restype = i
+        lib.ssd_intra_bwd_error_string.argtypes = [i]
+        lib.ssd_intra_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def _check(a, b, c, x) -> None:
@@ -221,10 +246,24 @@ def ssd_intra_chunk_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return y.to(out_dtype or x.dtype)
 
 
+class _SSDIntraChunk(torch.autograd.Function):
+    """The forward and the backward on their kernels."""
+
+    @staticmethod
+    def forward(ctx, a, b, c, x, out_dtype):
+        ctx.save_for_backward(a, b, c, x)
+        return _launch(a, b, c, x, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*ssd_intra_chunk_bwd(*ctx.saved_tensors, dy), None)
+
+
 def ssd_intra_chunk(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                     x: torch.Tensor, out_dtype: Optional[torch.dtype] = None
                     ) -> torch.Tensor:
-    """Batched intra-chunk SSD (module docstring) on the kernel."""
+    """Batched intra-chunk SSD (module docstring) on the kernel,
+    differentiable through the backward kernel."""
     _check(a, b, c, x)
     if a.device.type == "cpu":
         return ssd_intra_chunk_plain(a, b, c, x, out_dtype)
@@ -242,11 +281,18 @@ def ssd_intra_chunk(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                         f"{c.dtype}, x {x.dtype}, out {out_dtype}")
     if not all(t.is_contiguous() for t in (a, b, c, x)):
         raise ValueError("ssd_intra operands must be contiguous")
+    if a.shape[-1] > MAX_LEN:
+        raise ValueError(f"the ssd_intra kernel takes l <= {MAX_LEN}, got "
+                         f"l={a.shape[-1]}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (a, b, c, x)):
+        return _SSDIntraChunk.apply(a, b, c, x, out_dtype)
+    return _launch(a, b, c, x, out_dtype)
+
+
+def _launch(a, b, c, x, out_dtype: torch.dtype) -> torch.Tensor:
     n_c, n_h, l = a.shape
     n, p = b.shape[-1], x.shape[-1]
-    if l > MAX_LEN:
-        raise ValueError(f"the ssd_intra kernel takes l <= {MAX_LEN}, got "
-                         f"l={l}")
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y.to(out_dtype)
@@ -267,3 +313,73 @@ def ssd_intra_chunk(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     LAUNCHES += 1
     LAUNCHES_BY_PATH[pl.path] += 1
     return y.to(out_dtype)
+
+
+def ssd_intra_chunk_bwd_plain(a: torch.Tensor, b: torch.Tensor,
+                              c: torch.Tensor, x: torch.Tensor,
+                              dy: torch.Tensor
+                              ) -> Tuple[torch.Tensor, ...]:
+    """(da, db, dc, dx) for the output gradient ``dy``: autograd through
+    the plain version (f32 math), each gradient in its operand's type."""
+    _check(a, b, c, x)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (a, b, c, x)]
+        y = ssd_intra_chunk_plain(*ins, out_dtype=torch.float32)
+        return torch.autograd.grad(y, ins, dy.float())
+
+
+def ssd_intra_chunk_bwd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                        x: torch.Tensor, dy: torch.Tensor
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(da, db, dc, dx) on the backward kernel (``csrc/ssd_intra_bwd.cu``),
+    each in its operand's type; the plain version only for tensors on the
+    CPU. ``dy`` (C, l, H, P) in f32 or bf16."""
+    _check(a, b, c, x)
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"dy {tuple(dy.shape)} must have x's shape "
+                         f"{tuple(x.shape)}")
+    if a.device.type == "cpu":
+        return ssd_intra_chunk_bwd_plain(a, b, c, x, dy)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if any(t.device != a.device for t in (b, c, x, dy)):
+        raise ValueError("all operands must lie on one CUDA device")
+    if (a.dtype != torch.float32 or x.dtype not in _KERNEL_DTYPES
+            or b.dtype != x.dtype or c.dtype != x.dtype
+            or dy.dtype not in _KERNEL_DTYPES):
+        raise TypeError("the ssd_intra backward kernel takes a in float32, "
+                        "b, c and x in one of float32/bfloat16 and dy in "
+                        f"float32 or bfloat16; got a {a.dtype}, b {b.dtype},"
+                        f" c {c.dtype}, x {x.dtype}, dy {dy.dtype}")
+    n_c, n_h, l = a.shape
+    n, p = b.shape[-1], x.shape[-1]
+    if l > MAX_LEN:
+        raise ValueError(f"the ssd_intra backward kernel takes l <= "
+                         f"{MAX_LEN}, got l={l}")
+    lib = _bwd_lib()
+    if lib.ssd_intra_bwd_smem_bytes(l, p) > _SMEM_PER_SM - _SMEM_RESERVED:
+        raise ValueError(f"the ssd_intra backward kernel's shared memory "
+                         f"does not hold l={l}, P={p}")
+    a, b, c, x = (t.contiguous() for t in (a, b, c, x))
+    dy = dy.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=a.device)
+    da, dx = torch.empty(a.shape, **f32), torch.empty(x.shape, **f32)
+    db, dc = torch.empty(b.shape, **f32), torch.empty(c.shape, **f32)
+    if dx.numel() == 0 or da.numel() == 0:
+        return (da.zero_(), db.zero_().to(b.dtype), dc.zero_().to(c.dtype),
+                dx.zero_().to(x.dtype))
+    s, ds = torch.empty((n_c, l, l), **f32), torch.empty((n_c, l, l), **f32)
+    dsh = torch.empty((n_c, n_h, l, l), **f32)
+    dev = a.get_device()
+    err = lib.ssd_intra_bwd_launch(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), x.data_ptr(), dy.data_ptr(),
+        s.data_ptr(), dsh.data_ptr(), ds.data_ptr(), da.data_ptr(),
+        db.data_ptr(), dc.data_ptr(), dx.data_ptr(), n_c, n_h, l, n, p,
+        int(x.dtype == torch.bfloat16), dev,
+        torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError("ssd_intra backward kernel launch failed: "
+                           f"{lib.ssd_intra_bwd_error_string(err).decode()}")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return da, db.to(b.dtype), dc.to(c.dtype), dx.to(x.dtype)

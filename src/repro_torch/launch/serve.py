@@ -413,9 +413,8 @@ def _batch(args, cfg, init, dev):
     bcfg = BatchConfig(n_slots=args.slots, block_size=args.block_size,
                        n_blocks=args.kv_blocks,
                        prefix_cache=not args.no_prefix_cache)
+    # a declined --spec auto serves --runtime, as the reference does
     engine = "spec" if spec_cfg is not None else args.runtime
-    if args.spec == "auto" and spec_cfg is None:
-        engine = "scan"  # declined: the scan engine, as its message says
     print(f"runtime: {engine}"
           + {"scan": " (layer-indexed kernels over the stacked envelope, "
                      "the layer id on the card)",

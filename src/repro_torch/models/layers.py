@@ -29,7 +29,7 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 def maybe_quant_a(x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
     """eq. 5 on the fake-quant kernel in QAT mode (f32 math, ``x.dtype``
-    out), else ``x``."""
+    out), else ``x``; its gradient is the clamped straight-through rule."""
     if cim.mode == "qat" and cim.quant.enabled:
         return ops.fake_quant(x, cim.quant.a_bits, cim.quant.a_signed)
     return x
@@ -38,11 +38,13 @@ def maybe_quant_a(x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
 def maybe_quant_w(w: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
     """eqs. 6 and 8 in QAT mode: tanh-normalize in f32, then eq. 8 on the
     fake-quant kernel, ``w.dtype`` out. Re-quantized on every call, as the
-    reference does."""
+    reference does. eq. 8 has no clamp in the reference, so its gradient
+    is the unclamped straight-through rule (the normalized weight reaches
+    +-1 at each group's maximum, where a clamp's would halve)."""
     if cim.mode == "qat" and cim.quant.enabled:
         wq = Q.tanh_normalize(w.float(), cim.quant.group_size)
         return ops.fake_quant(wq, cim.quant.w_bits, signed=True,
-                              out_dtype=w.dtype)
+                              out_dtype=w.dtype, ste="noclip")
     return w
 
 
@@ -207,3 +209,17 @@ def embed(emb: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 def logits_out(head, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
     return cim_matmul(x, head, cim)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over unmasked positions, in f32. logits (B,S,V), labels
+    (B,S); a mask's mean divides by its sum + 1e-9, as the reference's."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / (mask.sum() + 1e-9)
+    return nll.mean()

@@ -16,6 +16,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from . import layers as L
@@ -144,6 +145,25 @@ def _head(params: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _mamba_body(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """One mamba2 layer with its pre-norm and residual. Returns (x,
+    (conv_tail, h_final))."""
+    y, tails = SSM.mamba_block(p, L.rmsnorm(x, p["ln"]), cfg)
+    return x + y, tails
+
+
+def _maybe_remat(fn, cfg: ModelConfig, x: torch.Tensor):
+    """``cfg.remat`` as ``torch.utils.checkpoint`` when autograd records
+    ``x``: a layer keeps only its inputs and is run again in the backward,
+    with the same numerics. "dots" (the reference keeps the matmul
+    outputs) recomputes the whole layer too. Serving is left as it is."""
+    if (cfg.remat in ("full", "dots") and torch.is_grad_enabled()
+            and x.requires_grad):
+        return lambda *args: torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn
+
+
 def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
                    collect_cache: bool = False):
     """Returns (hidden (B,S,D), aux loss (0 for these families),
@@ -153,16 +173,16 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
     if cfg.family == "dense":
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         windows, thetas = _layer_kind_arrays(cfg)
+        body = _maybe_remat(_attn_mlp_body, cfg, x)
         for i in range(cfg.n_layers):
-            x, kv = _attn_mlp_body(_layer(params, i), x, cfg, windows[i],
-                                   thetas[i], positions)
+            x, kv = body(_layer(params, i), x, cfg, windows[i], thetas[i],
+                         positions)
             parts.append(kv)
         names = ("k", "v")
     else:  # ssm
+        body = _maybe_remat(_mamba_body, cfg, x)
         for i in range(cfg.n_layers):
-            p = _layer(params, i)
-            y, tails = SSM.mamba_block(p, L.rmsnorm(x, p["ln"]), cfg)
-            x = x + y
+            x, tails = body(_layer(params, i), x, cfg)
             parts.append(tails)
         names = ("conv", "ssm")
     cache = None
@@ -173,9 +193,20 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
     return L.rmsnorm(x, params["final_ln"]), aux, cache
 
 
-def train_loss(params: dict, batch: dict, cfg: ModelConfig):
-    raise NotImplementedError("training (with a straight-through backward "
-                              "for fake_quant) is not ported yet")
+def train_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token CE (+ 0.01 aux, 0 for these families). batch: tokens
+    (B,S) [, loss_mask (B,S)]; padded vocab columns are masked before the
+    softmax."""
+    hidden, aux, _ = forward_hidden(params, batch, cfg)
+    logits = L.logits_out(_head(params), hidden, cfg.cim)
+    if cfg.vocab_eff != cfg.vocab:
+        pad = torch.arange(cfg.vocab_eff, device=logits.device) >= cfg.vocab
+        logits = torch.where(pad, L.NEG_INF, logits.float())
+    labels = batch["tokens"][:, 1:]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:]
+    return L.cross_entropy(logits[:, :-1, :], labels, mask) + 0.01 * aux
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig):

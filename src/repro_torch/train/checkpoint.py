@@ -24,8 +24,15 @@ reference loads the port's, except bf16 leaves, which it cannot read back
 * Leaves that are the same object are stored once and loaded as one
   tensor, so the tiers of a two-tier artifact share their dense leaves on
   the device too.
-* The template-driven ``save``/``restore`` of training state are not here:
-  they come with training.
+
+The template-driven half, for training state: :func:`save` writes each
+leaf of a nested dict under its ``/``-joined key path (keys in sorted
+order, as ``jax.tree_util`` flattens them; a Python int leaf, the step, as
+an int32 scalar) with a manifest of ``step``, ``extra`` and
+``n_arrays``, publishes it atomically and keeps the latest ``keep``
+checkpoints (:func:`_gc`); :func:`restore` reads them back into the
+structure, dtypes and devices of a template. A checkpoint written by
+either package restores in the other.
 """
 from __future__ import annotations
 
@@ -185,28 +192,119 @@ def tree_from_spec(spec: Any, leaves: List[np.ndarray],
     raise ValueError(f"unknown tree-spec node type {t!r}")
 
 
-def save_pytree(ckpt_dir: str, tree: Any, extra: Optional[dict] = None,
-                step: int = 0) -> str:
-    """Atomic template-free save: the structure into the manifest, the
-    array leaves (dtype kept) into the npz. Returns the step directory."""
-    leaves: List[np.ndarray] = []
-    spec = tree_spec(tree, leaves)
+def _publish(ckpt_dir: str, step: int, arrays: Dict[str, np.ndarray],
+             manifest: dict) -> str:
+    """Write ``arrays`` and ``manifest`` into ``.tmp-<step>`` and move it
+    to ``step_<step>`` in one ``os.replace``: a crash mid-save never
+    leaves a partial checkpoint under the final name."""
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp-{step}")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    np.savez(os.path.join(tmp, "arrays.npz"),
-             **{f"leaf_{i:06d}": a for i, a in enumerate(leaves)})
-    manifest = {"step": int(step), "extra": extra or {}, "spec": spec,
-                "n_arrays": len(leaves)}
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
     return final
+
+
+def save_pytree(ckpt_dir: str, tree: Any, extra: Optional[dict] = None,
+                step: int = 0) -> str:
+    """Atomic template-free save: the structure into the manifest, the
+    array leaves (dtype kept) into the npz. Returns the step directory."""
+    leaves: List[np.ndarray] = []
+    spec = tree_spec(tree, leaves)
+    return _publish(
+        ckpt_dir, step, {f"leaf_{i:06d}": a for i, a in enumerate(leaves)},
+        {"step": int(step), "extra": extra or {}, "spec": spec,
+         "n_arrays": len(leaves)})
+
+
+# ---------------------------------------------------------------------------
+# Template-driven: training state
+# ---------------------------------------------------------------------------
+
+
+def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(key path, leaf) pairs of nested dicts in ``jax.tree_util``'s
+    order: keys sorted at every level, joined with ``/``."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out = []
+    for k in sorted(tree):
+        out.extend(flatten(tree[k], f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _leaf_array(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, int):  # the step: the reference's is int32
+        return np.asarray(leaf, np.int32)
+    return _to_numpy(leaf)[0]
+
+
+def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
+         keep: int = 3) -> str:
+    """Atomic template-driven save of ``tree`` (nested dicts of tensors,
+    arrays and Python ints) at ``step``, then keep the latest ``keep``
+    checkpoints. Returns the step directory."""
+    arrays = {k: _leaf_array(v) for k, v in flatten(tree)}
+    final = _publish(ckpt_dir, step, arrays,
+                     {"step": int(step), "extra": extra or {},
+                      "n_arrays": len(arrays)})
+    _gc(ckpt_dir, keep)
+    return final
+
+
+def _gc(ckpt_dir: str, keep: int) -> None:
+    """Delete all but the latest ``keep`` ``step_*`` directories."""
+    ckpts = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+    for d in ckpts[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+def _restore_leaf(arr: np.ndarray, like: Any) -> Any:
+    """``arr`` in the type, dtype and device of the template leaf."""
+    if torch.is_tensor(like):
+        if like.dtype == torch.bfloat16 and arr.dtype.kind == "V":
+            t = _leaf_tensor(arr, _BF16, like.device)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(arr)).to(like.device,
+                                                                like.dtype)
+        return t.requires_grad_() if like.requires_grad else t
+    if isinstance(like, int):
+        return int(arr)
+    return np.asarray(arr).astype(np.asarray(like).dtype)
+
+
+def _unflatten(template: Any, values: Dict[str, Any], prefix: str = ""
+               ) -> Any:
+    if isinstance(template, dict):
+        return {k: _unflatten(v, values, f"{prefix}/{k}" if prefix
+                              else str(k)) for k, v in template.items()}
+    return values[prefix]
+
+
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None
+            ) -> Tuple[Any, dict]:
+    """Restore the latest checkpoint (or ``step``) into the structure of
+    ``template``: each leaf in the template leaf's dtype and on its device
+    (a tensor that requires a gradient comes back requiring one). Returns
+    (tree, manifest)."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(d, "arrays.npz")) as loaded:
+        values = {k: _restore_leaf(loaded[k], leaf)
+                  for k, leaf in flatten(template)}
+    return _unflatten(template, values), manifest
 
 
 def load_pytree(ckpt_dir: str, step: Optional[int] = None,

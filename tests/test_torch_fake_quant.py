@@ -15,6 +15,14 @@ type, and the callers that fuse the widening or narrowing into the kernel
 give the same bits as the composition they replaced. The CUDA kernel
 itself is held against the plain version by the ``cuda``-marked tests,
 which run only on a GPU.
+
+The straight-through backward (``ste="clip"`` for eq. 5's activations,
+``"noclip"`` for eq. 8's weights) equals ``jax.grad`` of the reference's
+``quantize_activation`` / ``quantize_weight_symmetric`` bit for bit,
+NaN for NaN: on the bounds (half the slope under the clamp), outside them,
+for NaN and +-inf inputs and for infinite output gradients. Subnormal
+inputs are left out: XLA's CPU backend flushes them to zero in the
+clamp's compares, which torch and the CUDA kernel do not.
 """
 import numpy as np
 import pytest
@@ -224,6 +232,129 @@ def test_fake_quant_wrapper_checks():
                        TFQ.fake_quant_plain(t.contiguous(), 4, True))
 
 
+def _ste_inputs(bits, signed, dtype, weight=False):
+    """x with the clamp's edge cases (both bounds, one ulp inside and
+    outside them, NaN, +-inf) among normals, and an output gradient with
+    a few infinities, as float32 numpy."""
+    rng = np.random.default_rng(3 * bits + signed + 11 * weight)
+    lo = -1.0 if signed else 0.0
+    x = (rng.standard_normal(2048) * (0.6 if weight else 1.5)).astype(
+        np.float32)
+    if weight:
+        x = np.clip(x, -1.0, 1.0)
+    edges = np.array([lo, 1.0, -1.0, 0.0, 0.5, np.nan, np.inf, -np.inf],
+                     np.float32)
+    tiny = np.finfo(np.float32).tiny  # the nearest normals to 0
+    near = np.array([np.nextafter(np.float32(v), np.float32(d)) if v
+                     else d * tiny / 2 for v in (lo, 1.0)
+                     for d in (-2.0, 2.0)], np.float32)
+    if dtype == "bfloat16":
+        near = _round_bf16(np.array([lo - 2 ** -7, lo + 2 ** -9,
+                                     1 - 2 ** -9, 1 + 2 ** -7],
+                                    np.float32))
+    x[:len(edges)] = edges
+    x[len(edges):len(edges) + len(near)] = near
+    g = rng.standard_normal(x.size).astype(np.float32)
+    g[100:104] = [np.inf, -np.inf, np.inf, np.nan]
+    g[:len(edges)] = rng.standard_normal(len(edges)) + 2.0
+    if dtype == "bfloat16":
+        x, g = _round_bf16(x), _round_bf16(g)
+    rng.shuffle(x)
+    return x, g
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_activation_ste_equals_jax_grad(bits, signed, dtype, out):
+    """The clip mode against ``jax.grad`` of eq. 5 as ``maybe_quant_a``
+    calls it (widen to f32, quantize, cast to the output type)."""
+    jax = pytest.importorskip("jax")
+    jnp, RQ, _, _ = _reference()
+    x, g = _ste_inputs(bits, signed, dtype)
+    xj, xt = _both(x, dtype)
+    gj, gt = _both(g, out)
+    f = lambda v: RQ.quantize_activation(v.astype(jnp.float32), bits,
+                                         signed).astype(gj.dtype)
+    want = jax.vjp(f, xj)[1](gj)[0]
+    xt.requires_grad_()
+    y = TFQ.fake_quant(xt, bits, signed, out_dtype=gt.dtype)
+    (got,) = torch.autograd.grad(y, xt, gt)
+    assert got.dtype == xt.dtype
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+    np.testing.assert_array_equal(
+        _f32(got), _f32(TFQ.fake_quant_bwd_plain(gt, xt.detach(), bits,
+                                                 signed)))
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_weight_ste_equals_jax_grad(bits, out):
+    """The noclip mode against ``jax.grad`` of eq. 8 as ``maybe_quant_w``
+    calls it (an f32 tanh-normalized weight in, the weight's type out):
+    the whole slope on +-1 too, and for NaN."""
+    jax = pytest.importorskip("jax")
+    jnp, RQ, _, _ = _reference()
+    x, g = _ste_inputs(bits, True, "float32", weight=True)
+    xj, xt = _both(x, "float32")
+    gj, gt = _both(g, out)
+    f = lambda v: RQ.quantize_weight_symmetric(v, bits).astype(gj.dtype)
+    want = jax.vjp(f, xj)[1](gj)[0]
+    xt.requires_grad_()
+    y = TOPS.fake_quant(xt, bits, True, out_dtype=gt.dtype, ste="noclip")
+    (got,) = torch.autograd.grad(y, xt, gt)
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+    slope = (2.0 ** (bits - 1) - 1) / 2.0 ** (bits - 1)
+    one = torch.ones(3, requires_grad=True)
+    (at_one,) = torch.autograd.grad(TOPS.fake_quant(
+        one, bits, True, ste="noclip").sum(), one)
+    (clipped,) = torch.autograd.grad(TOPS.fake_quant(
+        one, bits, True).sum(), one)
+    assert at_one.tolist() == [slope] * 3
+    assert clipped.tolist() == [slope / 2] * 3
+
+
+def test_ste_in_the_layer_quantizers_and_the_no_grad_path():
+    """``maybe_quant_a`` takes the clip mode and ``maybe_quant_w`` the
+    noclip mode; without a gradient to record, the wrapper saves nothing
+    and gives the same bits."""
+    q = dict(w_bits=4, a_bits=4, group_size=2, a_signed=True)
+    cim = CIMConfig(quant=QuantConfig(**q), mode="qat")
+    x = torch.tensor([[1.0, -1.0, 0.25, 3.0]], requires_grad=True)
+    (gx,) = torch.autograd.grad(TL.maybe_quant_a(x, cim).sum(), x)
+    assert gx.tolist() == [[0.4375, 0.4375, 0.875, 0.0]]
+    w = torch.tensor([[2.0, -0.5, 0.1, 0.3], [0.2, 0.4, -3.0, 1.0]],
+                     requires_grad=True)
+    g = torch.tensor([[1.0, 2.0, -1.0, 0.5], [3.0, -2.0, 1.5, 1.0]])
+    (gw,) = torch.autograd.grad(TL.maybe_quant_w(w, cim), w, g)
+    # eq. 6 times the whole slope 7/8, the groups' +-1 included (no clamp)
+    wn = TQ.tanh_normalize(w, 2)
+    assert (wn.detach().abs() == 1.0).sum() == 2
+    (want,) = torch.autograd.grad(wn, w, g * 0.875)
+    assert torch.equal(gw, want)
+    y = TFQ.fake_quant(x, 4, True)
+    with torch.no_grad():
+        y0 = TFQ.fake_quant(x, 4, True)
+    assert y.grad_fn is not None and y0.grad_fn is None
+    assert TFQ.fake_quant(x.detach(), 4, True).grad_fn is None
+    assert torch.equal(y.detach(), y0)
+
+
+def test_ste_backward_checks():
+    g = torch.ones(4)
+    with pytest.raises(ValueError, match="ste"):
+        TFQ.fake_quant(torch.zeros(4), 8, ste="round")
+    with pytest.raises(ValueError, match="x"):
+        TFQ.fake_quant_bwd(g, None, 8)
+    with pytest.raises(ValueError, match="dtype"):
+        TFQ.fake_quant_bwd(g, None, 8, ste="noclip")
+    with pytest.raises(ValueError, match="shape"):
+        TFQ.fake_quant_bwd(g, torch.zeros(5), 8)
+    assert TFQ.fake_quant_bwd(g, None, 8, True, "noclip",
+                              torch.bfloat16).dtype == torch.bfloat16
+
+
 def _gpu_input(shape, bits, dtype, extra=0):
     """1.5-scaled normals salted with NaN and +-inf, on the card, with
     ``extra`` leading elements for a misaligned view."""
@@ -281,3 +412,33 @@ def test_fake_quant_kernel_misaligned_and_odd_lengths_on_gpu(n):
                     torch.cuda.synchronize()
                     _assert_same(got, TFQ.fake_quant_plain(
                         x, 8, signed, out_dtype=out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 4099, 65_537])
+def test_fake_quant_bwd_kernel_matches_plain_on_gpu(n):
+    """The backward kernel against its plain version, bit for bit: both
+    modes, bits 2/4/8, signed and unsigned, every (x, grad) pair of f32
+    and bf16, aligned and misaligned views, edge values included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n0 = TFQ.BWD_LAUNCHES
+    count = 0
+    for bits in (2, 4, 8):
+        for signed in (False, True):
+            for dt in (torch.float32, torch.bfloat16):
+                for gdt in (torch.float32, torch.bfloat16):
+                    for k in (0, 1):
+                        x = _gpu_input((n,), bits, dt, extra=k)[k:]
+                        x[::5] = -1.0 if signed else 0.0
+                        x[1::7] = 1.0
+                        g = _gpu_input((n,), bits + 1, gdt, extra=k)[k:]
+                        for ste in ("clip", "noclip"):
+                            xs = x if ste == "clip" else None
+                            got = TFQ.fake_quant_bwd(g, xs, bits, signed, ste,
+                                                     dt)
+                            torch.cuda.synchronize()
+                            count += 1
+                            _assert_same(got, TFQ.fake_quant_bwd_plain(
+                                g, xs, bits, signed, ste, dt))
+    assert TFQ.BWD_LAUNCHES == n0 + count

@@ -52,3 +52,12 @@ def test_schedule_search_modules_are_walked():
                 "sched.simulate", "sched.search", "sched.executor",
                 "sched.pricing", "sched.autotune", "obs.gap"):
         assert f"repro_torch.{mod}" in names, mod
+
+
+def test_training_modules_are_walked():
+    """The import walk above reaches the training slice's modules."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    for mod in ("data", "data.pipeline", "train.optimizer", "train.trainer",
+                "train.checkpoint", "launch.train"):
+        assert f"repro_torch.{mod}" in names, mod

@@ -211,24 +211,50 @@ def _decision(out):
     return json.loads(line[len("spec auto: "):])
 
 
+def _runtime_line(out):
+    return next(ln for ln in out.splitlines() if ln.startswith("runtime:"))
+
+
 def test_spec_auto_uncalibrated_declines_and_serves_scan(tmp_path, capsys):
     """Uncalibrated at smoke size the reference's decision is "declined"
-    (scan wins); the run then serves the scan engine, with the tokens of a
+    (scan wins); with ``--runtime scan`` the run then serves the scan
+    engine, as the reference serves ``--runtime``, with the tokens of a
     plain scan run."""
     from repro.sched import search_spec
     argv = ["--arch", "yi-6b", "--smoke", "--compressed", "--tile", "16x16",
             "--artifact", str(tmp_path), "--requests", "3", "--new-tokens",
-            "4", "--device", "cpu"]
-    plain = TSERVE.main(argv + ["--runtime", "scan"])
+            "4", "--device", "cpu", "--runtime", "scan"]
+    plain = TSERVE.main(argv)
     capsys.readouterr()
     auto = TSERVE.main(argv + ["--spec", "auto"])
     out = capsys.readouterr().out
     want = search_spec(RR.get_smoke_config("yi-6b", dtype="float32"),
                        target_sparsity=0.5, arch="yi-6b-smoke").decision
     assert _decision(out) == want and want["verdict"] == "declined"
-    assert "runtime: scan" in out and auto.spec is None
+    assert _runtime_line(out).startswith("runtime: scan (")
+    assert auto.spec is None
     for rid, toks in plain.outputs.items():
         np.testing.assert_array_equal(auto.outputs[rid], toks)
+
+
+def test_spec_auto_declined_serves_the_default_runtime_as_the_reference(
+        reference, capsys):
+    """Without ``--runtime`` a declined ``--spec auto`` serves the loop
+    runtime, as the reference's CLI does on the same artifact: the same
+    ``runtime:`` line and the reference's loop tokens."""
+    path, ref_tokens, _ = reference
+    argv = _argv(path, "--spec", "auto")
+    RSERVE.main([a for a in argv if a not in ("--device", "cpu")])
+    ref_out = capsys.readouterr().out
+    auto = TSERVE.main(argv)
+    out = capsys.readouterr().out
+    assert _decision(out) == _decision(ref_out)
+    assert _decision(out)["verdict"] == "declined"
+    assert _runtime_line(out) == _runtime_line(ref_out) == \
+        "runtime: loop (python loop over per-layer weights)"
+    assert auto.spec is None
+    for rid, toks in ref_tokens.items():
+        np.testing.assert_array_equal(auto.outputs[rid], np.asarray(toks))
 
 
 def test_spec_run_persists_acceptance_and_auto_reads_it(tmp_path, capsys):

@@ -13,6 +13,16 @@ arithmetic (prefix sums from the row tile's origin, S * L as bf16 hi and lo
 planes) are held on the CPU; the CUDA kernel itself is held against the
 plain version and the function in float64 by the ``cuda``-marked tests,
 which run only on a GPU.
+
+The backward: the port's ``ssd_chunked`` differentiated by autograd (the
+plain intra-chunk version on the CPU) against ``jax.vjp`` of the
+reference's, for x, a, b, c and the entering state, at 1e-4 of each
+gradient's max (f32 sums in other orders). A CPU emulation of the backward
+kernel's algorithm (``csrc/ssd_intra_bwd.cu``: 32 x 32 causal tiles, a
+partial buffer per head summed over the heads in order, da from row and
+column sums by a reverse prefix sum) agrees with the plain backward at
+1e-5 and gives the same bits whatever order its (chunk, head) blocks run
+in, which is what makes each call of the kernel repeat bit for bit.
 """
 import numpy as np
 import pytest
@@ -107,6 +117,112 @@ def test_ssd_chunked_matches_reference(S, chunk, with_h0):
                                atol=1e-4)
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("S,chunk,with_h0", [
+    (64, 16, False),
+    (53, 16, True),    # ragged tail and an entering state
+])
+def test_ssd_chunked_grads_match_reference(S, chunk, with_h0):
+    jnp, _, _, RSSM = _reference()
+    import jax
+    x, a, b, c, h0 = _chunked_inputs(2, S, 3, 8, 6, S + chunk + 1)
+    rng = np.random.default_rng(S)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    dh = rng.standard_normal(h0.shape).astype(np.float32)
+    ins = [x, a, b, c] + ([h0] if with_h0 else [])
+
+    def f(x, a, b, c, *h):
+        return RSSM.ssd_chunked(x, a, b, c, chunk, h0=h[0] if h else None)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(t) for t in ins))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    tins = [torch.from_numpy(t).requires_grad_() for t in ins]
+    y, h = TSSM.ssd_chunked(*tins[:4], chunk,
+                            h0=tins[4] if with_h0 else None)
+    got = torch.autograd.grad((y, h), tins,
+                              (torch.from_numpy(dy), torch.from_numpy(dh)))
+    for name, w, g in zip("x a b c h0".split(), want, got):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= 1e-4, (name, err)
+
+
+def _bwd_emulation(a, b, c, x, dy, order):
+    """The backward kernel's algorithm on the CPU in f32, its (chunk,
+    head) blocks run in ``order``: S = C B^T per chunk; per block, column
+    tiles outer and row tiles inner over the causal 32 x 32 tiles, dx's
+    column tile summed over the row tiles, dM * L into the head's partial
+    buffer, G's row and column sums, da by a reverse prefix sum; then dS
+    summed over the heads in order, dC = dS B and dB = dS^T C."""
+    n_c, n_h, l = a.shape
+    T = 32
+    nt = -(-l // T)
+    s = torch.einsum("cin,cjn->cij", c.float(), b.float())
+    dsh = torch.zeros((n_c, n_h, l, l))
+    da, dx = torch.zeros(a.shape), torch.zeros(x.shape)
+    for ci, h in order:
+        cum = a[ci, h].float().cumsum(0)
+        rowg, colg = torch.zeros(l), torch.zeros(l)
+        for jt in range(nt):
+            jj = torch.arange(jt * T, min(l, jt * T + T))
+            acc = torch.zeros((len(jj), x.shape[-1]))
+            for it in range(jt, nt):
+                ii = torch.arange(it * T, min(l, it * T + T))
+                dm = dy[ci, ii, h].float() @ x[ci, jj, h].float().T
+                valid = ii[:, None] >= jj[None, :]
+                dec = torch.where(valid, torch.exp(
+                    cum[ii, None] - cum[None, jj]), torch.zeros(()))
+                m = s[ci][ii][:, jj] * dec
+                dsh[ci, h, ii[:, None], jj[None, :]] = dm * dec
+                g = dm * m
+                acc += m.T @ dy[ci, ii, h].float()
+                rowg[ii] += g.sum(1)
+                colg[jj] += g.sum(0)
+            dx[ci, jj, h] = acc
+        da[ci, h] = (rowg - colg).flip(0).cumsum(0).flip(0)
+    ds = dsh[:, 0].clone()
+    for h in range(1, n_h):
+        ds += dsh[:, h]
+    dc = ds @ b.float()
+    db = ds.transpose(1, 2) @ c.float()
+    return da, db, dc, dx
+
+
+def test_backward_kernel_emulation_is_right_and_order_free():
+    C, H, l, N, P = 2, 3, 70, 16, 24  # three row tiles, the last ragged
+    a, b, c, x = (torch.from_numpy(t)
+                  for t in _inputs(C, H, l, N, P, seed=9))
+    dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        x.shape).astype(np.float32))
+    want = TK.ssd_intra_chunk_bwd_plain(a, b, c, x, dy)
+    blocks = [(ci, h) for ci in range(C) for h in range(H)]
+    got = _bwd_emulation(a, b, c, x, dy, blocks)
+    rng = np.random.default_rng(2)
+    shuffled = [blocks[i] for i in rng.permutation(len(blocks))]
+    again = _bwd_emulation(a, b, c, x, dy, shuffled)
+    for name, w, g, g2 in zip("da db dc dx".split(), want, got, again):
+        assert torch.equal(g, g2), name
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err <= 1e-5, (name, err)
+
+
+def test_ssd_intra_autograd_on_the_cpu_is_the_plain_gradient():
+    """The wrapper differentiates the plain version on CPU tensors; the
+    backward entry point gives the same gradients, each in its operand's
+    type."""
+    a, b, c, x = (torch.from_numpy(t) for t in _inputs(2, 2, 40, 8, 16, 3))
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(0))
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [a.clone().requires_grad_()] + [
+            t.to(dt).requires_grad_() for t in (b, c, x)]
+        y = TK.ssd_intra_chunk(*ins, out_dtype=torch.float32)
+        got = torch.autograd.grad(y, ins, dy)
+        want = TK.ssd_intra_chunk_bwd(*(t.detach() for t in ins), dy)
+        for g, w, t in zip(got, want, ins):
+            assert w.dtype == t.dtype and torch.equal(g, w)
+    with pytest.raises(ValueError, match="shape"):
+        TK.ssd_intra_chunk_bwd(a, b, c, x, dy[:, :-1])
 
 
 def test_ssd_step_continues_the_chunked_scan():
@@ -336,3 +452,35 @@ def test_ssd_intra_kernel_within_f64_bar_on_gpu(draw):
         print(f"{(C, H, l, N, P)} {draw}: max |kernel - f64| / max |f64| "
               f"{d_kernel / scale:.3e}, plain f32 {d_plain / scale:.3e}")
         assert d_kernel <= max(1e-5 * scale, d_plain), (d_kernel, d_plain)
+
+
+@pytest.mark.cuda
+def test_ssd_intra_bwd_kernel_matches_plain_on_gpu():
+    """The backward kernel against its plain version on the card: f32 at
+    1e-4 of each gradient's max |plain|, bf16 b, c, x at 2e-2; every call
+    repeated bit for bit; the autograd path of the wrapper launches it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for C, H, l, N, P in GPU_CASES:
+        a, b, c, x = _gpu_inputs(C, H, l, N, P, l + 2, "serve")
+        dy = torch.randn(x.shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(l))
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = (a, b.to(dt), c.to(dt), x.to(dt))
+            n0 = TK.BWD_LAUNCHES
+            got = TK.ssd_intra_chunk_bwd(*args, dy)
+            again = TK.ssd_intra_chunk_bwd(*args, dy)
+            torch.cuda.synchronize()
+            assert TK.BWD_LAUNCHES == n0 + 2
+            want = TK.ssd_intra_chunk_bwd_plain(*args, dy)
+            for g, g2, w, t in zip(got, again, want, args):
+                assert torch.equal(g, g2), (C, H, l, N, P, dt)
+                assert g.dtype == t.dtype
+                err = float((g.float() - w.float()).abs().max()
+                            / w.float().abs().max())
+                assert err <= tol, (C, H, l, N, P, dt, err)
+    ins = [t.clone().requires_grad_() for t in (a, b, c, x)]
+    n0 = TK.BWD_LAUNCHES
+    torch.autograd.grad(TK.ssd_intra_chunk(*ins, out_dtype=torch.float32),
+                        ins, dy)
+    assert TK.BWD_LAUNCHES == n0 + 1
