@@ -236,6 +236,10 @@ SSD_F64_TOL = 1e-5
 # phase 2's SSD intra-chunk backward in f32: each gradient within this share
 # of its max |plain| (f32 sums in another order; the forward's bar)
 SSD_BWD_TOL = 1e-4
+# the backward kernel's bf16 tensor-core products per multiply-add of f32
+# operands (three exact planes a side, the six plane products of order <=
+# 2^-16; csrc/ssd_intra_bwd.cu), which phase 8's bound counts
+SSD_BWD_PASSES = 6
 
 # the train phase: QAT (--cim, w8a8, group lasso 1e-5) training through the
 # CLI in f32 with AdamW on TokenPipeline. yi-6b at full width, depth cut to
@@ -2898,24 +2902,32 @@ def times_train(torch, kern, cfg_yi, cfg_mamba):
     # the least work over the causal pairs i >= j, l (l + 1) / 2 of them:
     # S = C B^T (N multiply-adds a pair), dM = dy x^T and dx = M^T dy (P
     # each a pair and head), dC = dS B and dB = dS^T C (N each a pair), 2
-    # FLOPs a multiply-add, f32 at the CUDA cores' rate; a, b, c, x, dy
-    # read once and da, db, dc, dx written once, f32
+    # FLOPs a multiply-add; a, b, c, x, dy read once and da, db, dc, dx
+    # written once, f32. The kernel multiplies on the bf16 tensor cores,
+    # each f32 operand as three exact planes and SSD_BWD_PASSES plane
+    # products a multiply-add, so its operations take that many passes of
+    # the work at the bf16 tensor-core rate; the same work at the CUDA
+    # cores' f32 rate (the first kernel's bound) is printed beside it
     pairs = l * (l + 1) // 2
     nbytes = 4 * (2 * C * H * l + 4 * C * l * N + 3 * C * l * H * P)
     flops = 2 * C * pairs * (3 * N + 2 * H * P)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    b_ms, b_by = bound_ms(nbytes, SSD_BWD_PASSES * flops,
+                          BF16_TC_FLOPS_PER_S)
+    f32_ms, f32_by = bound_ms(nbytes, flops)
     run = lambda: SI.ssd_intra_chunk_bwd(a, b, c, x, dy)
     row = {"shape": "ssd_intra_bwd train", "entry": "ssd_intra_chunk_bwd",
            "dims": {"C": C, "H": H, "l": l, "N": N, "P": P},
            "dtype": "float32",
            "kernel_ms": time_ms(torch, run, flush),
            "bound_ms": b_ms, "bound_by": b_by,
+           "tc_passes": SSD_BWD_PASSES,
+           "bound_ms_f32_cuda_cores": f32_ms, "bound_by_f32_cuda_cores":
+           f32_by,
            "plain_ms": time_ms(torch, lambda: SI.ssd_intra_chunk_bwd_plain(
                a, b, c, x, dy), flush, iters=10),
            "library_ms": None,
            "device_ms": device_split(torch, run, flush, (
-               "ssd_bwd_scores", "ssd_bwd_head", "ssd_bwd_sum_heads",
-               "ssd_bwd_bc"))}
+               "ssd_bwd_scores", "ssd_bwd_main", "ssd_bwd_finish"))}
     rows.append(row)
     log(json.dumps(row))
     return rows

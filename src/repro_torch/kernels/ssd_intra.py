@@ -26,9 +26,19 @@ operand type and load path.
 
 Gradients. When an operand needs a gradient and grad mode is on, the
 CUDA path runs through an autograd Function whose backward is
-``ssd_intra_chunk_bwd``, the kernel of ``csrc/ssd_intra_bwd.cu`` (f32 math,
-a fixed summation order, no atomics: each call repeats bit for bit;
-``BWD_LAUNCHES`` counts its calls). The CPU path is plain torch, so
+``ssd_intra_chunk_bwd``, the kernel of ``csrc/ssd_intra_bwd.cu``: three
+launches on bf16 tensor cores. The first makes S^T = B C^T of the causal
+64 x 64 tiles. In the second, a cluster of two blocks owns a chunk, a
+64-column tile of the l x l plane and BWD_HEADS heads; each block takes
+BWD_SUB heads through dM = dy x^T, dx = M^T dy and G's sums, and the
+cluster merges its heads' dS through distributed shared memory into one
+partial per head group (no per-head l x l buffer reaches device memory).
+The third makes dC and dB from the partials summed in order, and da from
+G's sums. Every f32 operand (dy, M and dS always; x, b and c on the f32
+path) goes in as three exact bf16 planes (``split3``) with the six plane
+products of order <= 2^-16 kept, a bf16 one as one plane; a fixed
+summation order and no atomics make each call repeat bit for bit.
+``BWD_LAUNCHES`` counts its calls. The CPU path is plain torch, so
 autograd differentiates the plain version itself, and
 ``ssd_intra_chunk_bwd_plain`` is that gradient as a function.
 """
@@ -59,6 +69,10 @@ _STAGE_ELEMS = max(2 * ROWS * (32 + 8), 2 * 32 * (64 + 8))
 SMS = 132  # streaming multiprocessors of an H100 SXM, unless told
 MIN_BLOCKS = 2  # the launch bounds' resident blocks per SM (128 registers)
 _SMEM_PER_SM, _SMEM_RESERVED = 233472, 1024  # per SM, and kept per block
+# the backward kernel's tiling (csrc/ssd_intra_bwd.cu): BWD_TILE x BWD_TILE
+# tiles of the l x l plane, BWD_HEADS heads a cluster (one partial dS each)
+# of blocks of BWD_SUB heads
+BWD_TILE, BWD_HEADS, BWD_SUB = 64, 8, 4
 
 _LIB = None
 _BWD_LIB = None
@@ -179,6 +193,19 @@ def split_hi_lo(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def split3(v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The kernels' split of an f32 operand into three bf16 planes, on any
+    device: each plane is the remainder of the ones before, rounded to
+    nearest even, in f32; p0 + p1 + p2 = v exactly for normal f32 (three
+    8-bit significands), and each plane times a bf16 plane is exact in
+    f32."""
+    v = v.float()
+    p0 = v.to(torch.bfloat16)
+    r = v - p0.float()
+    p1 = r.to(torch.bfloat16)
+    return p0, p1, (r - p1.float()).to(torch.bfloat16)
+
+
 def reset_launches() -> None:
     global LAUNCHES, BWD_LAUNCHES
     LAUNCHES = BWD_LAUNCHES = 0
@@ -205,10 +232,15 @@ def _bwd_lib() -> ctypes.CDLL:
     if _BWD_LIB is None:
         lib = _build.load("ssd_intra_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_intra_bwd_launch.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.ssd_intra_bwd_launch.argtypes = [p] * 10 + [i] * 7 + [p]
         lib.ssd_intra_bwd_launch.restype = i
-        lib.ssd_intra_bwd_smem_bytes.argtypes = [i, i]
-        lib.ssd_intra_bwd_smem_bytes.restype = i
+        lib.ssd_intra_bwd_workspace_floats.argtypes = [i, i, i]
+        lib.ssd_intra_bwd_workspace_floats.restype = ctypes.c_int64
+        lib.ssd_intra_bwd_group_heads.argtypes = []
+        lib.ssd_intra_bwd_group_heads.restype = i
+        if lib.ssd_intra_bwd_group_heads() != BWD_HEADS:
+            raise RuntimeError("csrc/ssd_intra_bwd.cu's head group is not "
+                               f"BWD_HEADS = {BWD_HEADS}")
         lib.ssd_intra_bwd_error_string.argtypes = [i]
         lib.ssd_intra_bwd_error_string.restype = ctypes.c_char_p
         _BWD_LIB = lib
@@ -357,29 +389,38 @@ def ssd_intra_chunk_bwd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"the ssd_intra backward kernel takes l <= "
                          f"{MAX_LEN}, got l={l}")
     lib = _bwd_lib()
-    if lib.ssd_intra_bwd_smem_bytes(l, p) > _SMEM_PER_SM - _SMEM_RESERVED:
-        raise ValueError(f"the ssd_intra backward kernel's shared memory "
-                         f"does not hold l={l}, P={p}")
+    bf16 = int(x.dtype == torch.bfloat16)
     a, b, c, x = (t.contiguous() for t in (a, b, c, x))
     dy = dy.float().contiguous()
     f32 = dict(dtype=torch.float32, device=a.device)
-    da, dx = torch.empty(a.shape, **f32), torch.empty(x.shape, **f32)
-    db, dc = torch.empty(b.shape, **f32), torch.empty(c.shape, **f32)
-    if dx.numel() == 0 or da.numel() == 0:
-        return (da.zero_(), db.zero_().to(b.dtype), dc.zero_().to(c.dtype),
-                dx.zero_().to(x.dtype))
-    s, ds = torch.empty((n_c, l, l), **f32), torch.empty((n_c, l, l), **f32)
-    dsh = torch.empty((n_c, n_h, l, l), **f32)
+    if x.numel() == 0 or a.numel() == 0:
+        return (torch.zeros(a.shape, **f32), torch.zeros(b.shape, **f32).to(
+            b.dtype), torch.zeros(c.shape, **f32).to(c.dtype),
+            torch.zeros(x.shape, **f32).to(x.dtype))
+    # dx, the workspace (S^T of the causal tiles, a partial dS^T per head
+    # group, G's row sums per column tile; 16-byte aligned), da, db, dc in
+    # one allocation, the views made after the launch: a CUDA allocation
+    # costs the host several us, and the host time before the first launch
+    # is part of every call
+    n_x = x.numel()
+    o_ws = -(-n_x // 4) * 4
+    o_da = o_ws + lib.ssd_intra_bwd_workspace_floats(n_c, n_h, l)
+    o_db = o_da + a.numel()
+    o_dc = o_db + b.numel()
+    buf = torch.empty(o_dc + c.numel(), **f32)
+    ptr = buf.data_ptr()
     dev = a.get_device()
     err = lib.ssd_intra_bwd_launch(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), x.data_ptr(), dy.data_ptr(),
-        s.data_ptr(), dsh.data_ptr(), ds.data_ptr(), da.data_ptr(),
-        db.data_ptr(), dc.data_ptr(), dx.data_ptr(), n_c, n_h, l, n, p,
-        int(x.dtype == torch.bfloat16), dev,
-        torch._C._cuda_getCurrentRawStream(dev))
+        ptr + 4 * o_ws, ptr + 4 * o_da, ptr + 4 * o_db, ptr + 4 * o_dc, ptr,
+        n_c, n_h, l, n, p, bf16, dev, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError("ssd_intra backward kernel launch failed: "
                            f"{lib.ssd_intra_bwd_error_string(err).decode()}")
+    dx = buf[:n_x].view(x.shape)
+    da = buf[o_da:o_db].view(a.shape)
+    db = buf[o_db:o_dc].view(b.shape)
+    dc = buf[o_dc:].view(c.shape)
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return da, db.to(b.dtype), dc.to(c.dtype), dx.to(x.dtype)

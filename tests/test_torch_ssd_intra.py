@@ -18,11 +18,14 @@ The backward: the port's ``ssd_chunked`` differentiated by autograd (the
 plain intra-chunk version on the CPU) against ``jax.vjp`` of the
 reference's, for x, a, b, c and the entering state, at 1e-4 of each
 gradient's max (f32 sums in other orders). A CPU emulation of the backward
-kernel's algorithm (``csrc/ssd_intra_bwd.cu``: 32 x 32 causal tiles, a
-partial buffer per head summed over the heads in order, da from row and
-column sums by a reverse prefix sum) agrees with the plain backward at
-1e-5 and gives the same bits whatever order its (chunk, head) blocks run
-in, which is what makes each call of the kernel repeat bit for bit.
+kernel's algorithm (``csrc/ssd_intra_bwd.cu``: 64 x 64 causal tiles, a
+block per (chunk, column tile, head group), the products over three exact
+bf16 planes of each f32 operand, one partial dS per head group summed over
+the groups in order,
+da from row and column sums by a reverse prefix sum) agrees with the plain
+backward at 1e-5 on a small shape and within the card's bar at the
+training chunk length, and gives the same bits whatever order its blocks
+run in, which is what makes each call of the kernel repeat bit for bit.
 """
 import numpy as np
 import pytest
@@ -148,55 +151,107 @@ def test_ssd_chunked_grads_match_reference(S, chunk, with_h0):
         assert err <= 1e-4, (name, err)
 
 
+def _planes(v):
+    """The kernel's bf16 planes of an operand, in f64: one exact plane for
+    bf16, the three of ``split3`` for f32."""
+    if v.dtype == torch.bfloat16:
+        return [v.double()]
+    return [p.double() for p in TK.split3(v)]
+
+
+def _mma(a, b):
+    """A B over the kernel's plane products (pa + pb <= the larger plane
+    count - 1: the six of order <= 2^-16 for three planes each, every pair
+    when a side has one plane), exact products summed in f64 where the
+    tensor cores sum in f32, rounded to f32."""
+    pa_, pb_ = _planes(a), _planes(b)
+    order = max(len(pa_), len(pb_)) - 1
+    return sum(x @ y for i, x in enumerate(pa_)
+               for j, y in enumerate(pb_) if i + j <= order).float()
+
+
+def _bwd_blocks(n_c, n_h, l):
+    """The main launch's blocks, (chunk, column tile, head group)."""
+    groups = -(-n_h // TK.BWD_HEADS)
+    return [(ci, jt, grp) for jt in range(-(-l // TK.BWD_TILE))
+            for ci in range(n_c) for grp in range(groups)]
+
+
 def _bwd_emulation(a, b, c, x, dy, order):
-    """The backward kernel's algorithm on the CPU in f32, its (chunk,
-    head) blocks run in ``order``: S = C B^T per chunk; per block, column
-    tiles outer and row tiles inner over the causal 32 x 32 tiles, dx's
-    column tile summed over the row tiles, dM * L into the head's partial
-    buffer, G's row and column sums, da by a reverse prefix sum; then dS
-    summed over the heads in order, dC = dS B and dB = dS^T C."""
+    """The backward kernel's algorithm (``csrc/ssd_intra_bwd.cu``) on the
+    CPU, its main clusters run in ``order``. A cluster (chunk, 64-column
+    tile j, group of BWD_HEADS heads; blocks of BWD_SUB heads) walks the
+    row tiles i >= j: S^T = B_j C_i^T, then per head dM^T = x_j dy_i^T, L,
+    M = S L, G = dM M, dx_j += M^T dy_i (summed over the row tiles in
+    order), G's column sums (over i) and its row sums over the tile's
+    columns, and dS^T += dM^T L in four sums (per block, its heads hb, hb +
+    2 and hb + 1, hb + 3 as the kernel's two warpgroups), added per block
+    and then over the blocks in rank order into the group's partial dS. The
+    finish: dS as the partials summed over the groups in order, dC = dS B
+    and dB = dS^T C, and da as the reverse prefix sum of G's row sums (over
+    the column tiles in order) minus its column sums. Every product is
+    ``_mma`` of the kernel's bf16 planes (dy, M and dS split as f32; x, b
+    and c one plane when bf16); the rest is f32."""
     n_c, n_h, l = a.shape
-    T = 32
-    nt = -(-l // T)
-    s = torch.einsum("cin,cjn->cij", c.float(), b.float())
-    dsh = torch.zeros((n_c, n_h, l, l))
-    da, dx = torch.zeros(a.shape), torch.zeros(x.shape)
-    for ci, h in order:
-        cum = a[ci, h].float().cumsum(0)
-        rowg, colg = torch.zeros(l), torch.zeros(l)
-        for jt in range(nt):
-            jj = torch.arange(jt * T, min(l, jt * T + T))
-            acc = torch.zeros((len(jj), x.shape[-1]))
-            for it in range(jt, nt):
-                ii = torch.arange(it * T, min(l, it * T + T))
-                dm = dy[ci, ii, h].float() @ x[ci, jj, h].float().T
-                valid = ii[:, None] >= jj[None, :]
-                dec = torch.where(valid, torch.exp(
-                    cum[ii, None] - cum[None, jj]), torch.zeros(()))
-                m = s[ci][ii][:, jj] * dec
-                dsh[ci, h, ii[:, None], jj[None, :]] = dm * dec
-                g = dm * m
-                acc += m.T @ dy[ci, ii, h].float()
-                rowg[ii] += g.sum(1)
-                colg[jj] += g.sum(0)
-            dx[ci, jj, h] = acc
-        da[ci, h] = (rowg - colg).flip(0).cumsum(0).flip(0)
-    ds = dsh[:, 0].clone()
-    for h in range(1, n_h):
-        ds += dsh[:, h]
-    dc = ds @ b.float()
-    db = ds.transpose(1, 2) @ c.float()
+    T, hg = TK.BWD_TILE, TK.BWD_HEADS
+    tiles, groups = -(-l // T), -(-n_h // hg)
+    dy = dy.float()
+    part = torch.zeros((n_c, groups, l, l))
+    rowp = torch.zeros((n_c, n_h, tiles, l))
+    colg = torch.zeros((n_c, n_h, l))
+    dx = torch.zeros(x.shape)
+    cum = a.float().cumsum(-1)
+    for ci, jt, grp in order:
+        jj = torch.arange(jt * T, min(l, jt * T + T))
+        heads = range(grp * hg, min(n_h, grp * hg + hg))
+        for it in range(jt, tiles):
+            ii = torch.arange(it * T, min(l, it * T + T))
+            st = _mma(b[ci, jj], c[ci, ii].T)
+            acc = [torch.zeros((len(jj), len(ii)))
+                   for _ in range(2 * TK.BWD_HEADS // TK.BWD_SUB)]
+            valid = ii[None, :] >= jj[:, None]
+            for q, h in enumerate(heads):
+                dmt = _mma(x[ci, jj, h], dy[ci, ii, h].T)
+                lt = torch.where(valid, torch.exp(cum[ci, h, ii][None, :]
+                                                  - cum[ci, h, jj][:, None]),
+                                 torch.zeros(()))
+                mt = st * lt
+                gt = dmt * mt
+                w = 2 * (q // TK.BWD_SUB) + q % 2  # (block, warpgroup)
+                acc[w] = acc[w] + dmt * lt
+                colg[ci, h, jj] += gt.sum(1)
+                rowp[ci, h, jt, ii] = gt.sum(0)
+                dx[ci, jj, h] = (dx[ci, jj, h].double()
+                                 + _mma(mt, dy[ci, ii, h]).double()).float()
+            total = acc[0] + acc[1]
+            for r in range(2, len(acc), 2):  # the blocks in rank order
+                total = total + (acc[r] + acc[r + 1])
+            part[ci, grp, ii[:, None], jj[None, :]] = total.T
+    ds = part[:, 0].clone()
+    for grp in range(1, groups):
+        ds += part[:, grp]
+    dc = torch.stack([_mma(ds[ci], b[ci]) for ci in range(n_c)])
+    db = torch.stack([_mma(ds[ci].T, c[ci]) for ci in range(n_c)])
+    dcum = rowp[:, :, 0].clone()
+    for jt in range(1, tiles):
+        dcum += rowp[:, :, jt]
+    dcum -= colg
+    da = torch.zeros(a.shape)
+    run = torch.zeros((n_c, n_h))
+    for i in range(l - 1, -1, -1):
+        run = run + dcum[..., i]
+        da[..., i] = run
     return da, db, dc, dx
 
 
 def test_backward_kernel_emulation_is_right_and_order_free():
-    C, H, l, N, P = 2, 3, 70, 16, 24  # three row tiles, the last ragged
+    C, H, l, N, P = 2, 3, 70, 16, 24  # two row tiles, the last ragged
     a, b, c, x = (torch.from_numpy(t)
                   for t in _inputs(C, H, l, N, P, seed=9))
     dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
         x.shape).astype(np.float32))
     want = TK.ssd_intra_chunk_bwd_plain(a, b, c, x, dy)
-    blocks = [(ci, h) for ci in range(C) for h in range(H)]
+    blocks = _bwd_blocks(C, H, l)
     got = _bwd_emulation(a, b, c, x, dy, blocks)
     rng = np.random.default_rng(2)
     shuffled = [blocks[i] for i in rng.permutation(len(blocks))]
@@ -205,6 +260,31 @@ def test_backward_kernel_emulation_is_right_and_order_free():
         assert torch.equal(g, g2), name
         err = float((g - w).abs().max() / w.abs().max())
         assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_backward_kernel_planes_hold_the_bar_at_the_training_length(dtype,
+                                                                    tol):
+    """The kernel's algorithm at mamba2-780m's training chunk (l 256, N
+    128, P 64) and the serving path's decay draw, at narrow H (two head
+    groups): da, db, dc and dx within the card's bar of each gradient's
+    max |plain| (1e-4 for f32; 2e-2 for bf16 b, c, x, whose gradients are
+    rounded to bf16), at the split's plane products."""
+    C, H, l, N, P = 2, 20, 256, 128, 64
+    rng = np.random.default_rng(7)
+    z = rng.standard_normal((C, H, l)).astype(np.float32)
+    a = torch.from_numpy(-np.logaddexp(0.0, z).astype(np.float32))
+    b, c = (torch.from_numpy((rng.standard_normal((C, l, N)) * 0.3).astype(
+        np.float32)).to(getattr(torch, dtype)) for _ in range(2))
+    x = torch.from_numpy((rng.standard_normal((C, l, H, P)) * 0.3).astype(
+        np.float32)).to(getattr(torch, dtype))
+    dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    want = TK.ssd_intra_chunk_bwd_plain(a, b, c, x, dy)
+    got = _bwd_emulation(a, b, c, x, dy, _bwd_blocks(C, H, l))
+    for name, w, g, t in zip("da db dc dx".split(), want, got, (a, b, c, x)):
+        err = float((g.to(t.dtype).float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= tol, (name, err)
 
 
 def test_ssd_intra_autograd_on_the_cpu_is_the_plain_gradient():
@@ -319,6 +399,25 @@ def test_hi_lo_split_reconstructs_within_2_pow_minus_17():
     assert float(rel.max()) <= 2.0 ** -17, float(rel.max())
     assert torch.equal(TK.split_hi_lo(hi.float())[1].float(),
                        torch.zeros_like(v))  # a bf16 value has no lo plane
+
+
+def test_split3_is_exact():
+    """The backward kernel's three planes of an f32 operand: bf16 values,
+    each the rounded remainder of the ones before, whose sum is v exactly
+    over normal f32 of every scale; a bf16 value is its first plane."""
+    rng = np.random.default_rng(4)
+    v = (rng.standard_normal(200_000)
+         * np.exp2(rng.integers(-60, 60, 200_000))).astype(np.float32)
+    v = torch.from_numpy(np.concatenate([v, [0.0, 1.0, -1.5, 3.0e-30]
+                                         ]).astype(np.float32))
+    planes = TK.split3(v)
+    assert all(p.dtype == torch.bfloat16 for p in planes)
+    assert torch.equal(sum(p.double() for p in planes), v.double())
+    assert torch.equal(planes[0], v.to(torch.bfloat16))
+    assert torch.equal(planes[1], TK.split_hi_lo(v)[1])
+    b = v.to(torch.bfloat16)
+    assert all(torch.equal(p.float(), torch.zeros_like(v))
+               for p in TK.split3(b.float())[1:])
 
 
 def ssd_f64(a, b, c, x):
