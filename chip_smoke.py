@@ -147,7 +147,32 @@ needed. Phases (any failure exits non-zero):
               (checkpoint and exit 0) and --resume reaching the straight
               run's parameters and moments bit for bit, and one more step
               profiled (phase 7); phase 8 then times both backward kernels
-              at these shapes.
+              at these shapes;
+ 11. cnn    - run after phase 10: the paper's CNNs (repro_torch.models.cnn)
+              driven as tests/test_system.py and examples/compress_cnn.py
+              drive the reference's, under
+              torch.use_deterministic_algorithms(True) in f32:
+              VGG16-CIFAR and ResNet18-CIFAR at full width (cim_config()'s
+              QAT w8a4, alpha = N = 16, lambda_g 1e-4; random weights from
+              a seed; CNN_BATCH 32x32 images of ImagePipeline a step): one
+              train step's loss, gradients and BN state equal bit for bit
+              to the plain path's (fake_quant and its backward swapped),
+              CNN_STEPS steps of the reference's SGD update (step ms,
+              images/s, peak memory, the loss finite, launch counts exact:
+              two fake_quant launches a conv a forward, fake_quant_bwd on
+              every weight and every conv input but the images), one step
+              profiled (phase 7), prune_all at CNN_TARGET (each conv's
+              zero group-set proportion), CNN_RETRAIN masked steps (the
+              masks unchanged, every masked weight's effective weight 0),
+              an eval forward on a held-out batch equal bit for bit to the
+              plain path's (its accuracy printed); VGG16's deepest conv
+              deployed as a 4608 x 512 eqs. 6-8 matrix at 16x16 tiles
+              through ops.bsr_matmul at CNN_DEPLOY_ROWS rows (within 1e-5
+              of the plain version and of x @ w2d; timed in phase 8 with
+              fake_quant and its backward at the phase's widest shapes);
+              the reference's own CNN learning check (SMALL_PLAN, w4a4,
+              CNN_SMALL_STEPS steps: the mean of the last 5 losses under
+              the first 5's by 0.05).
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -267,6 +292,23 @@ TRAIN_MAMBA = ["--arch", "mamba2-780m", "--batch", str(TRAIN_MAMBA_BATCH),
                "2", *TRAIN_COMMON]
 TRAIN_MAMBA_STOP = 5
 TRAIN_GRAD_TOL = 1e-3
+
+# the cnn phase (11): the paper's VGG16-CIFAR and ResNet18-CIFAR at full
+# width with cim_config()'s defaults (QAT w8a4, alpha = N = 16, lambda_g
+# 1e-4), f32, on ImagePipeline's 32x32 images, CNN_BATCH a step; CNN_STEPS
+# steps of the reference's update (p - CNN_LR g, tests/test_system.py),
+# pruning to CNN_TARGET of the group-set tiles (examples/compress_cnn.py's
+# default), CNN_RETRAIN masked steps; the deepest VGG16 conv deployed at
+# 16x16 tiles through the block-sparse kernel at CNN_DEPLOY_ROWS rows; the
+# reference's own learning check (test_cnn_qat_prune_deploy_pipeline's
+# configuration) at CNN_SMALL_STEPS steps
+CNN_BATCH = 128
+CNN_STEPS = 20
+CNN_LR = 0.05
+CNN_TARGET = 0.7
+CNN_RETRAIN = 10
+CNN_DEPLOY_ROWS = (32, 128)
+CNN_SMALL_STEPS = 60
 
 # card vs CPU (phase 3): a greedy divergence is a fault where the card's
 # top-2 logit margin exceeds the bf16 kernel tolerance (the model is bf16)
@@ -2214,21 +2256,23 @@ def bound(m, k, n, nnz, bk, bn, go):
                     2 * m * blocks, BF16_TC_FLOPS_PER_S)
 
 
-def bsr_rows(torch, K, Q, flush, name, entry, ops, run, k_in, extra=None):
+def bsr_rows(torch, K, Q, flush, name, entry, ops, run, k_in, extra=None,
+             ms=None):
     """Phase 8's rows of one block-sparse packing (layer 0 of ``ops``) at
-    decode and prefill rows: kernel / bound / plain / library times, and
-    the kernel's device time split into its launches (the bf16 copy of x,
-    the main kernel, the split reduce)."""
+    decode and prefill rows (or at ``ms`` rows): kernel / bound / plain /
+    library times, and the kernel's device time split into its launches
+    (the bf16 copy of x, the main kernel, the split reduce)."""
     _, go, nmax, bk, bn = ops[0].shape
     nnz = int(ops[3][0].clamp(max=nmax).sum())
     w_dense = K.dense_weight(*ops, 0, k_in)  # the library call's weight
     rows = []
-    for m in (N_SLOTS, PROMPT_ROWS):
+    for m in ms or (N_SLOTS, PROMPT_ROWS):
         x = Q.quantize_activation(torch.randn((m, k_in), device=DEV),
                                   8, signed=True)
         b_ms, b_by = bound(m, k_in, go * bn, nnz, bk, bn, go)
-        row = {"shape": f"{name} decode" if m == N_SLOTS
-               else f"{name} prefill", "entry": entry, "M": m,
+        label = (f"{name} {m} rows" if ms else f"{name} decode"
+                 if m == N_SLOTS else f"{name} prefill")
+        row = {"shape": label, "entry": entry, "M": m,
                "K": k_in, "N": go * bn, "tile": [bk, bn],
                "nnz_blocks": nnz, **(extra or {}),
                "kernel_ms": time_ms(torch, lambda: run(x), flush),
@@ -2933,6 +2977,342 @@ def times_train(torch, kern, cfg_yi, cfg_mamba):
     return rows
 
 
+def cnn_loss(torch, net, cim, plan=None, train=True):
+    """test_system's loss: cross entropy + the model's regularization;
+    returns (loss, (ce, new_state, logits))."""
+    from repro_torch.models import cnn
+    apply = ((lambda p, s, x: cnn.vgg_apply(p, s, x, cim, plan, train))
+             if net == "vgg16" else
+             (lambda p, s, x: cnn.resnet_apply(p, s, x, cim, train)))
+
+    def loss(p, s, images, labels):
+        logits, s2 = apply(p, s, images)
+        ce = -torch.log_softmax(logits, -1).gather(
+            1, labels[:, None]).mean()
+        return ce + cnn.regularization(p, cim), (ce, s2, logits)
+    return loss
+
+
+def cnn_step(loss, p, s, images, labels):
+    """The reference's update (``cnn.sgd_step`` at CNN_LR); returns
+    (params, state, ce)."""
+    from repro_torch.models import cnn
+    p, (ce, s2, _) = cnn.sgd_step(loss, p, s, images, labels, lr=CNN_LR)
+    return p, s2, float(ce.detach())
+
+
+def cnn_launches(n_convs, steps, train=True) -> dict:
+    """The launches of ``steps`` QAT steps (or forwards) of a CNN: eq. 5 on
+    every conv's input and eqs. 7-8 on its weight, one fake_quant each, in
+    every forward; in training fake_quant_bwd on every weight and on every
+    conv input that needs a gradient (all but the first conv's, whose
+    input is the images)."""
+    return {"bsr_matmul": 0, "bsr_matmul_stacked": 0, "quant_matmul": 0,
+            "decode_attention": 0, "ssd_intra_chunk": 0,
+            "ssd_intra_chunk_bwd": 0, "fake_quant": 2 * n_convs * steps,
+            "fake_quant_bwd": (2 * n_convs - 1) * steps * train}
+
+
+def cnn_batch(torch, pipe):
+    b = pipe.next_batch()
+    return (torch.as_tensor(b["images"], device=DEV),
+            torch.as_tensor(b["labels"], device=DEV).long())
+
+
+def cnn_plain_equal(torch, FQ, run):
+    """``run()`` on the kernel path and with fake_quant (forward and
+    backward) swapped for its plain version: every tensor of the two
+    results equal bit for bit."""
+    from repro_torch.core.sparsity import tensor_leaves
+    got = run()
+    saved = FQ.fake_quant
+    FQ.fake_quant = FQ.fake_quant_plain
+    try:
+        want = run()
+    finally:
+        FQ.fake_quant = saved
+    a, b = tensor_leaves(got), tensor_leaves(want)
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    return len(a)
+
+
+def cnn_net(torch, kern, net, card):
+    """Phase 11 for one full-width network (see ``cnn``)."""
+    from repro_torch.configs import resnet18_cifar, vgg16_cifar
+    from repro_torch.core import cim_layer as CL
+    from repro_torch.core import sparsity as S
+    from repro_torch.data import ImagePipeline
+    from repro_torch.models import cnn
+    _, FQ, _, _, _ = kern
+    cim = vgg16_cifar.cim_config()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    if net == "vgg16":
+        plan = vgg16_cifar.FULL_PLAN
+        params, state = cnn.vgg_init(gen, cim, plan, n_classes=10,
+                                     device=DEV)
+    else:
+        plan = None
+        params, state = cnn.resnet_init(gen, cim, resnet18_cifar.FULL_STAGES,
+                                        n_classes=10, device=DEV)
+    n_convs = len(list(cnn.iter_conv_params(params)))
+    n_params = sum(t.numel() for t in S.tensor_leaves(params)
+                   if t.is_floating_point()) - sum(
+        p["mask"].numel() for p in cnn.iter_conv_params(params))
+    loss = cnn_loss(torch, net, cim, plan)
+    pipe = ImagePipeline(n_classes=10, hw=32, batch=CNN_BATCH, seed=0)
+    rec = {"net": net, "convs": n_convs, "params": n_params,
+           "batch": CNN_BATCH, "cim": "qat w8a4, alpha = N = 16, "
+           "lambda_g 1e-4", "card": card}
+
+    # a. one train step, kernel path against plain path
+    images, labels = cnn_batch(torch, pipe)
+    rec["plain_path_tensors_equal"] = cnn_plain_equal(
+        torch, FQ, lambda: cnn.grads(loss, params, state, images, labels))
+
+    # b. CNN_STEPS steps of the reference's update
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches(kern)
+    ces, step_s = [], []
+    for _ in range(CNN_STEPS):
+        images, labels = cnn_batch(torch, pipe)
+        t0 = time.perf_counter()
+        params, state, ce = cnn_step(loss, params, state, images,
+                                     labels)
+        step_s.append(time.perf_counter() - t0)  # float(ce) synchronized
+        ces.append(ce)
+    got, want = train_counts(kern), cnn_launches(n_convs, CNN_STEPS)
+    assert got == want, (net, got, want)
+    assert all(math.isfinite(v) for v in ces), ces
+    steady = statistics.median(step_s[1:])
+    rec.update(losses=ces, first_step_ms=step_s[0] * 1e3,
+               step_ms_median=steady * 1e3, images_per_s=CNN_BATCH / steady,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=got)
+    counts = {f"cnn {net}": got}
+    profile_run(torch, f"{net} QAT train step (batch {CNN_BATCH})",
+                lambda: {"ce": cnn_step(loss, params, state, images,
+                                        labels)[2]},
+                {"fake_quant_fwd": "fake_quant_kernel",
+                 "fake_quant_bwd": "fake_quant_bwd_kernel"})
+
+    # c. prune, masked retraining, masked weights dead
+    cim_p = dataclasses.replace(cim, sparsity=dataclasses.replace(
+        cim.sparsity, target_sparsity=CNN_TARGET))
+    pruned = cnn.prune_all(params, cim_p)
+    masks = [p["mask"].clone() for p in cnn.iter_conv_params(pruned)]
+    zg = []
+    for p in cnn.iter_conv_params(pruned):
+        kh, kw, ci, co = p["mask"].shape
+        zg.append(float(torch.stack([
+            S.zero_groupset_proportion(m, 16, 16)
+            for m in p["mask"].reshape(kh * kw, ci, co)]).mean()))
+    rec["zero_groupset_proportion"] = zg
+    reset_launches(kern)
+    for _ in range(CNN_RETRAIN):
+        images, labels = cnn_batch(torch, pipe)
+        pruned, state, ce = cnn_step(loss, pruned, state, images,
+                                     labels)
+    got = train_counts(kern)
+    assert got == cnn_launches(n_convs, CNN_RETRAIN), (net, got)
+    counts[f"cnn {net} retrain"] = got
+    dead = 0
+    for p, m in zip(cnn.iter_conv_params(pruned), masks):
+        co = p["w"].shape[-1]
+        assert torch.equal(p["mask"], m), net
+        w_eff = CL.effective_weight({"w": p["w"].reshape(-1, co),
+                                     "mask": m.reshape(-1, co)}, cim_p)
+        off = m.reshape(-1, co) == 0
+        assert bool((w_eff[off] == 0).all()), net
+        dead += int(off.sum())
+    rec.update(retrain_final_ce=ce, masked_weights_dead=dead)
+
+    # d. eval on a held-out batch
+    held = ImagePipeline(n_classes=10, hw=32, batch=CNN_BATCH, seed=1)
+    images, labels = cnn_batch(torch, held)
+    ev = cnn_loss(torch, net, cim, plan, train=False)
+    reset_launches(kern)
+    with torch.no_grad():
+        _, (_, _, logits) = ev(pruned, state, images, labels)
+    torch.cuda.synchronize()
+    got = train_counts(kern)
+    assert got == cnn_launches(n_convs, 1, train=False), (net, got)
+    counts[f"cnn {net} eval"] = got
+    with torch.no_grad():
+        cnn_plain_equal(torch, FQ, lambda: ev(pruned, state, images,
+                                              labels)[1][2])
+    rec["eval_accuracy"] = float((logits.argmax(-1) == labels).float()
+                                 .mean())
+    log(json.dumps({"cnn": rec}))
+    return counts, pruned
+
+
+def cnn_deploy(torch, kern, params, card):
+    """VGG16's deepest conv, pruned and retrained, deployed: its (3 3 512,
+    512) matrix through eqs. 6-8 at 8 bits with its mask, packed at 16x16
+    and multiplied by the block-sparse kernel at CNN_DEPLOY_ROWS rows of
+    eq. 5 activations and of off-grid f32 x, against the plain version and
+    x @ w2d within phase 2's f32 tolerance (1e-5)."""
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    K = kern[0]
+    deep = list(cnn.iter_conv_params(params))[-1]
+    co = deep["w"].shape[-1]
+    w2d = Q.mars_weight_quant((deep["w"] * deep["mask"]).reshape(-1, co),
+                              8, 16)
+    packed = ops.pack_for_kernel(w2d, bits=8, bk=16, bn=16)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    xs = {(m, kind): (ops.fake_quant(torch.rand((m, w2d.shape[0]),
+                                                generator=gen, device=DEV),
+                                     4) if kind == "eq5" else
+                      torch.randn((m, w2d.shape[0]), generator=gen,
+                                  device=DEV))
+          for m in CNN_DEPLOY_ROWS for kind in ("eq5", "f32")}
+    reset_launches(kern)
+    ys = {key: ops.bsr_matmul(x, packed) for key, x in xs.items()}
+    torch.cuda.synchronize()
+    got = dict(K.LAUNCHES_BY_ENTRY)
+    assert got == {"bsr_matmul": len(xs), "bsr_matmul_stacked": 0}, got
+    err = 0.0
+    for key, x in xs.items():
+        want = K.bsr_matmul_stacked_plain(
+            x, packed["blocks"][None], packed["scales"][None],
+            packed["row_idx"][None], packed["nnz"][None], 0)
+        for ref in (want, x @ w2d):
+            torch.testing.assert_close(ys[key], ref, rtol=1e-5, atol=1e-5)
+        err = max(err, float((ys[key] - want).abs().max()))
+    log(json.dumps({"cnn_deploy": {
+        "conv": list(deep["w"].shape), "matrix": list(w2d.shape),
+        "tile": [16, 16], "density": packed["density"],
+        "rows": list(CNN_DEPLOY_ROWS), "x": ["eq5", "f32"],
+        "max_abs_err_vs_plain": err, "launches": got["bsr_matmul"],
+        "card": card}}))
+    single = [packed[k] for k in ("blocks", "scales", "row_idx", "nnz")]
+    rows = bsr_rows(torch, K, Q, torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                                             device=DEV),
+                    "cnn deploy vgg16 conv13 16x16", "bsr_matmul",
+                    [a[None] for a in single],
+                    lambda x: K.bsr_matmul(x, *single), w2d.shape[0],
+                    ms=CNN_DEPLOY_ROWS)
+    return {"cnn deploy": {"bsr_matmul": got["bsr_matmul"]}}, err, rows
+
+
+def times_cnn(torch, kern):
+    """Phase 8 at the cnn phase's shapes, f32: fake_quant on VGG16's widest
+    conv input (CNN_BATCH, 32, 32, 64) at 4 bits and on its deepest weight
+    (3 3 512, 512) at 8 bits signed, and the straight-through backward of
+    both (the clamped rule, which reads x): kernel, bound and plain times
+    and the device time per launch."""
+    _, FQ, _, _, _ = kern
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    rows = []
+    for name, shape, bits, signed in (
+            ("act", (CNN_BATCH, 32, 32, 64), 4, False),
+            ("weight", (3 * 3 * 512, 512), 8, True)):
+        x = torch.rand(shape, generator=gen, device=DEV) * 1.4 - 0.2
+        g = torch.randn(shape, generator=gen, device=DEV)
+        n = x.numel()
+        for entry, run, plain, nbytes, ops in (
+                ("fake_quant", lambda: FQ.fake_quant(x, bits, signed),
+                 lambda: FQ.fake_quant_plain(x, bits, signed), 8 * n, 5 * n),
+                # grad and x read, grad_in written; 2 multiplies, 4
+                # compares and the slope's multiply
+                ("fake_quant_bwd",
+                 lambda: FQ.fake_quant_bwd(g, x, bits, signed, "clip"),
+                 lambda: FQ.fake_quant_bwd_plain(g, x, bits, signed, "clip"),
+                 12 * n, 7 * n)):
+            b_ms, b_by = bound_ms(nbytes, ops)
+            row = {"shape": f"{entry} cnn {name}", "entry": entry,
+                   "dims": list(shape), "dtype": "float32",
+                   "bits": bits, "signed": signed,
+                   "kernel_ms": time_ms(torch, run, flush),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "plain_ms": time_ms(torch, plain, flush),
+                   "library_ms": None,
+                   "device_ms": device_split(torch, run, flush, (
+                       f"{entry}_kernel",))[f"{entry}_kernel"]}
+            rows.append(row)
+            log(json.dumps(row))
+    return rows
+
+
+def cnn_small(torch, kern, card):
+    """tests/test_system.py's CNN learning check on the card: SMALL_PLAN,
+    4 classes, 16x16 images, batch 16, QAT w4a4 with lambda_g 1e-3, seed
+    0 weights drawn on the host; the mean of the last 5 cross entropies
+    under the mean of the first 5 by 0.05."""
+    from repro_torch.configs import vgg16_cifar
+    from repro_torch.data import ImagePipeline
+    from repro_torch.models import cnn
+    cim = vgg16_cifar.cim_config(w_bits=4, a_bits=4, lambda_g=1e-3)
+    params, state = cnn.vgg_init(torch.Generator().manual_seed(0), cim,
+                                 vgg16_cifar.SMALL_PLAN, n_classes=4,
+                                 device="cpu")
+    params, state = cnn.map_tensors(lambda t: t.to(DEV), (params, state))
+    loss = cnn_loss(torch, "vgg16", cim, vgg16_cifar.SMALL_PLAN)
+    pipe = ImagePipeline(n_classes=4, batch=16, hw=16)
+    reset_launches(kern)
+    ces = []
+    for _ in range(CNN_SMALL_STEPS):
+        images, labels = cnn_batch(torch, pipe)
+        params, state, ce = cnn_step(loss, params, state, images,
+                                     labels)
+        ces.append(ce)
+    got = train_counts(kern)
+    assert got == cnn_launches(3, CNN_SMALL_STEPS), got
+    first, last = statistics.mean(ces[:5]), statistics.mean(ces[-5:])
+    assert last < first - 0.05, ("the small CNN did not learn", ces)
+    log(json.dumps({"cnn_small": {"plan": vgg16_cifar.SMALL_PLAN,
+                                  "steps": CNN_SMALL_STEPS,
+                                  "first5_ce": first, "last5_ce": last,
+                                  "card": card}}))
+    return {"cnn small": got}
+
+
+def cnn(torch, kern, card):
+    """Phase "cnn": the paper's CNNs through ``repro_torch.models.cnn``,
+    driven as tests/test_system.py and examples/compress_cnn.py drive the
+    reference's, under ``torch.use_deterministic_algorithms(True)`` in f32
+    (TF32 off). For VGG16-CIFAR and ResNet18-CIFAR at full width (random
+    weights, seed 0; cim_config()'s QAT w8a4):
+
+    a. one train step's loss, gradients and new BN state on the kernel
+       path equal bit for bit to the plain path's (fake_quant and its
+       backward swapped for their plain versions);
+    b. CNN_STEPS steps of the reference's update: the loss finite, step ms
+       (median) and images/s, peak memory, launch counts exact a step
+       (``cnn_launches``);
+    c. ``prune_all`` at CNN_TARGET, each conv's zero group-set proportion,
+       CNN_RETRAIN masked steps (launches exact), the masks unchanged and
+       every masked weight's effective weight exactly 0;
+    d. an eval forward on a held-out batch: 2 fake_quant launches a conv,
+       equal bit for bit to the plain path's, the accuracy printed.
+
+    Then VGG16's deepest conv deployed (``cnn_deploy``) and the small
+    net's learning check (``cnn_small``). Returns the launch counts, the
+    deployed conv's max |kernel - plain| and its phase 8 rows."""
+    t_phase = time.perf_counter()
+    counts = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for net in ("vgg16", "resnet18"):
+            got, params = cnn_net(torch, kern, net, card)
+            counts.update(got)
+            if net == "vgg16":
+                got, err, rows = cnn_deploy(torch, kern, params, card)
+                counts.update(got)
+            del params
+            torch.cuda.empty_cache()
+        counts.update(cnn_small(torch, kern, card))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[cnn] phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return counts, err, rows
+
+
 def main() -> int:
     # the train phase runs under torch.use_deterministic_algorithms, whose
     # cuBLAS needs a fixed workspace, read when cuBLAS starts
@@ -2951,7 +3331,7 @@ def main() -> int:
 
 
 def run_all(torch, search) -> int:
-    """Phases 1-10 (see the module docstring); ``search`` is the full-depth
+    """Phases 1-11 (see the module docstring); ``search`` is the full-depth
     schedule search's process, read by phase 9."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import quant as Q
@@ -3038,6 +3418,9 @@ def run_all(torch, search) -> int:
     sched_counts, sched_tiles = sched(torch, kern, card, search)
     counts.update(sched_counts)
     counts.update(train(torch, kern, card))
+    cnn_counts, deploy_err, cnn_rows = cnn(torch, kern, card)
+    counts.update(cnn_counts)
+    max_err["bsr_matmul"] = max(max_err["bsr_matmul"], deploy_err)
 
     profile_serve(torch, cfg, sp)
     profile_spec(torch, cfg, sp, draft)
@@ -3049,7 +3432,8 @@ def run_all(torch, search) -> int:
             + times_mamba(torch, kern, mcfg, mparams)
             + times_quant_matmul(torch, QM, cfg, mlp, bench)
             + times_decode_attention(torch, DA, cfg)
-            + times_train(torch, kern, registry.get_config("yi-6b"), mcfg))
+            + times_train(torch, kern, registry.get_config("yi-6b"), mcfg)
+            + cnn_rows + times_cnn(torch, kern))
     pick = {"bsr_matmul_stacked": "w_gate decode", "bsr_matmul": "head decode",
             "fake_quant": "fake_quant act prefill",
             "ssd_intra_chunk": "ssd_intra serve",

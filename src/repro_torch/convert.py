@@ -14,6 +14,9 @@
   ``init_train_state`` makes it (``{"params", "opt": {"m"[, "v"]},
   "step"}``) after ``np.asarray`` on every leaf, so both trainers can
   start from the same state.
+* :func:`cnn_params_from_numpy` takes a CNN's params and BN state as the
+  reference's ``vgg_init``/``resnet_init`` make them (HWIO weights, VGG's
+  ``None`` at each pool, ResNet's block ``stride``), numpy leaves or not.
 
 bfloat16 arrays arrive as the ml_dtypes ``bfloat16`` numpy type, which
 ``torch.from_numpy`` rejects; they cross through a ``uint16`` view.
@@ -89,3 +92,23 @@ def train_state_from_numpy(tree: dict, cfg: ModelConfig,
     return train_state(TrainConfig(), params_from_numpy(tree["params"], cfg,
                                                         dev),
                        _tree(tree["opt"], dev), int(np.asarray(tree["step"])))
+
+
+def _cnn_tree(x, device: torch.device) -> Any:
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: (int(np.asarray(v)) if k == "stride"
+                    else _cnn_tree(v, device)) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_cnn_tree(v, device) for v in x]
+    return tensor_from_numpy(x, device)
+
+
+def cnn_params_from_numpy(params: dict, state: dict,
+                          device: DeviceLike = None):
+    """A CNN's (params, state) trees -> the port's on ``device``: the same
+    structure, ``None`` kept, each ResNet block's ``stride`` a Python
+    int."""
+    dev = resolve_device(device)
+    return _cnn_tree(params, dev), _cnn_tree(state, dev)

@@ -5,8 +5,12 @@ eq.6  per-group tanh normalization:  W_hat = tanh(W) / max|tanh(W)| (per group)
 eq.7  BN fusion:  W_bar = clamp(gamma * W_hat / sqrt(var + eps), -1, 1)
 eq.8  symmetric weight quant:  W_q = round(W_bar * (2^{b-1} - 1)) / 2^{b-1}
 
-Serving only: no straight-through estimators. ``torch.round`` rounds half
-to even, as ``jnp.round`` does, and every step stays in the input's dtype.
+The quantizers here are the plain forms (no straight-through estimator);
+training runs eqs. 5, 7 and 8 on the fake-quant kernel, whose autograd
+Function carries the reference's straight-through gradient
+(``kernels/fake_quant.py``). ``torch.round`` rounds half to even, as
+``jnp.round`` does, and every step stays in the input's dtype. The BN
+helpers at the end are differentiable, as the reference's are.
 """
 from __future__ import annotations
 
@@ -69,6 +73,21 @@ def fuse_bn_scale(w_hat: torch.Tensor, gamma: Optional[torch.Tensor],
     return (w_hat * (gamma / torch.sqrt(var + eps))).clamp(-1.0, 1.0)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: the same values as ``clamp``, and the same gradient as
+    the reference's, half the slope on a bound (``torch.clamp`` passes the
+    whole slope there), since both frameworks split a tie of min/max
+    evenly."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def fold_input_scale(w_hat: torch.Tensor, scale: torch.Tensor
+                     ) -> torch.Tensor:
+    """An RMSNorm/LayerNorm gain (per input feature) folded into the weight
+    the way eq. 7 folds BN, clipped to [-1, 1]."""
+    return clip(w_hat * scale[..., :, None], -1.0, 1.0)
+
+
 def quantize_weight_symmetric(w_bar: torch.Tensor, bits: int) -> torch.Tensor:
     """eq. 8: b=4 -> {-7..7}/8."""
     if bits >= 32:
@@ -87,3 +106,21 @@ def mars_weight_quant(w: torch.Tensor, bits: int, group_size: int = 16,
     w_hat = tanh_normalize(w, group_size)
     return quantize_weight_symmetric(fuse_bn_scale(w_hat, gamma, var, eps),
                                      bits)
+
+
+# ---------------------------------------------------------------------------
+# Batch-norm statistics (the EMA that eq. 7 reads in eval mode)
+# ---------------------------------------------------------------------------
+
+
+def ema_update(old: torch.Tensor, batch: torch.Tensor,
+               momentum: float = 0.9) -> torch.Tensor:
+    return momentum * old + (1.0 - momentum) * batch
+
+
+def batch_stats(pre_activation: torch.Tensor):
+    """Per-channel (last axis) mean and population variance (``jnp.var``'s
+    ddof 0, not ``torch.var``'s default) of a conv or linear output."""
+    dims = tuple(range(pre_activation.dim() - 1))
+    var, mean = torch.var_mean(pre_activation, dim=dims, correction=0)
+    return mean, var

@@ -126,14 +126,17 @@ def _plain_forward(x: torch.Tensor, bits: int, signed: bool,
     else:
         levels = 2.0 ** bits - 1.0
         y = torch.round(x32.clamp(0.0, 1.0) * levels) / (2.0 ** bits)
-    return y.to(out_dtype)
+    return y.to(out_dtype).contiguous()  # laid out as the kernel writes it
 
 
 def fake_quant_plain(x: torch.Tensor, bits: int, signed: bool = False,
                      out_dtype: Optional[torch.dtype] = None,
                      ste: str = "clip") -> torch.Tensor:
-    """Plain PyTorch version: the same f32 arithmetic, ``out_dtype`` out;
-    differentiable by the straight-through rule ``ste``."""
+    """Plain PyTorch version: the same f32 arithmetic, ``out_dtype`` out,
+    contiguous as the kernel's (a layout that follows a strided input
+    would change the order of later reductions over it, so the two paths
+    would part by ulps); differentiable by the straight-through rule
+    ``ste``."""
     out_dtype = _check(x, bits, out_dtype)
     _check_ste(ste)
     if _needs_grad(x):
@@ -208,7 +211,8 @@ def fake_quant_bwd_plain(grad: torch.Tensor, x: Optional[torch.Tensor],
                          dtype: Optional[torch.dtype] = None
                          ) -> torch.Tensor:
     """Plain PyTorch version of the straight-through backward: the
-    gradient w.r.t. ``x`` (module docstring) in ``dtype`` (default
+    gradient w.r.t. ``x`` (module docstring), contiguous as the kernel's
+    (a conv weight's gradient arrives strided), in ``dtype`` (default
     ``x.dtype``; ``x`` may be None in the "noclip" mode, which does not
     read it)."""
     dtype = _check_bwd(grad, x, bits, ste, dtype)
@@ -220,7 +224,7 @@ def fake_quant_bwd_plain(grad: torch.Tensor, x: Optional[torch.Tensor],
         m = torch.where((x32 > lo) & (x32 < 1.0), 1.0,
                         torch.where((x32 == lo) | (x32 == 1.0), 0.5, 0.0))
         v = v * m
-    return v.to(dtype)
+    return v.to(dtype).contiguous()
 
 
 def fake_quant_bwd(grad: torch.Tensor, x: Optional[torch.Tensor], bits: int,

@@ -61,3 +61,12 @@ def test_training_modules_are_walked():
     for mod in ("data", "data.pipeline", "train.optimizer", "train.trainer",
                 "train.checkpoint", "launch.train"):
         assert f"repro_torch.{mod}" in names, mod
+
+
+def test_cnn_modules_are_walked():
+    """The import walk above reaches the CNN slice's modules."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    for mod in ("core.cim_layer", "models.cnn", "configs.vgg16_cifar",
+                "configs.resnet18_cifar"):
+        assert f"repro_torch.{mod}" in names, mod
