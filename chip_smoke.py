@@ -53,7 +53,14 @@ needed. Phases (any failure exits non-zero):
               lengths); the SSD intra-chunk backward at the train phase's
               mamba2-780m shape, the serving shape and SSD_SHAPES (f32
               within SSD_BWD_TOL of each gradient's max |plain|, bf16 in
-              within 2e-2, each call repeated bit for bit);
+              within 2e-2, each call repeated bit for bit); the
+              block-sparse kernel at phi3.5-moe's serving tile (128, 64) at
+              its head's shape; the grouped product at phase 12's shapes
+              (GM_SHAPES) within GM_F32_TOL / GM_BF16_TOL of max |plain|,
+              with and without row counts, each call repeated bit for bit,
+              and each row bit for bit equal at the row counts of GM_ROWS
+              and beside other rows; the decode-attention kernel at
+              stablelm-12b's dh 160 and grok-1's 6 heads a kv head;
   3. serve yi-6b - yi-6b at full width in bf16, depth cut to 4 layers,
               random weights from a seed, compressed (uniform 128x128 tile,
               60% tile sparsity) and served by BatchServer on the scan and
@@ -172,7 +179,25 @@ needed. Phases (any failure exits non-zero):
               fake_quant and its backward at the phase's widest shapes);
               the reference's own CNN learning check (SMALL_PLAN, w4a4,
               CNN_SMALL_STEPS steps: the mean of the last 5 losses under
-              the first 5's by 0.05).
+              the first 5's by 0.05);
+ 12. moe-configs - run after phase 11: the moe family and the last dense
+              configs (MOE_CONFIGS) at full width, depth cut, random bf16
+              weights from a seed, compressed at TILE (phi3.5-moe's clipped
+              to (128, 64)) and SPARSITY: phi3.5-moe (4 layers) on the
+              loop, scan and spec (reprune) runtimes, grok-1 (2 layers;
+              expert_split 2, 6 heads a kv head) and stablelm-12b (2
+              layers; dh 160) on loop and scan, gemma3-27b (6 layers, five
+              local of window 1024 and one global; tied head) on loop, scan
+              and spec (layer-skip) with a ninth request of GEMMA_PROMPT
+              tokens decoding past position 1024; per run tokens equal bit
+              for bit and launch counts exact (the grouped product for the
+              router, the experts and the float head); for each config a
+              verify pass bit for bit equal to one-token steps (gemma3's
+              past its window, through the tied head); for phi3.5-moe the
+              kernel path's greedy tokens against the all-plain path's by
+              the margin rule, and a prefill of MOE_REFUSED_LEN padded
+              tokens refused as a ValueError; tokens/s, TTFT and decode-step
+              p50 per run.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -381,6 +406,49 @@ SCHED_TOPN = 3
 SEARCH_TIMEOUT = 900
 VERIFY_TOL = 1e-5
 
+# phase 12 (moe-configs): the moe slice's configs at full width, depth
+# cut, compressed at TILE clipped to one uniform fit (phi3.5-moe's vocab
+# 32064 = 64 x 501 takes (128, 64)) and SPARSITY, as (arch, layers, spec
+# draft family or None)
+MOE_CONFIGS = (("phi3.5-moe-42b-a6.6b", 4, "reprune"),
+               ("grok-1-314b", 2, None), ("stablelm-12b", 2, None),
+               ("gemma3-27b", 6, "layerskip"))
+# gemma3's long request: GEMMA_PROMPT prompt tokens, then GEMMA_NEW new
+# ones, the last 64 past position 1024, where its window (1024) cuts the
+# local layers' keys
+GEMMA_PROMPT = 1000
+GEMMA_NEW = 1024 + 64 - GEMMA_PROMPT
+# a direct phi3.5-moe prefill of this many padded tokens (a block-size
+# multiple in (512, 1024)): no token group size divides it, so the moe
+# block refuses it, as the reference's reshape does
+MOE_REFUSED_LEN = 768
+# the grouped product (phases 2 and 8) at phase 12's shapes, (label, G, R,
+# K, N, x type, w type): compressed serving's residual stream is f32 (eq. 5
+# widens it) over bf16 stacks; a one-token row takes 2 capacity rows of
+# each expert (decode: N_SLOTS rows, verify: VERIFY_ROWS) and a 128-token
+# prefill 20; gemma3's tied head at one row (prefill_last) and a verify's.
+# f32 within GM_F32_TOL of max |plain| and bf16 within GM_BF16_TOL (f32
+# sums of up to 16384 terms in another order; the bf16 output's rounding);
+# rows held bit for bit at the counts of GM_ROWS
+_F32, _BF16 = "float32", "bfloat16"
+GM_SHAPES = [
+    ("phi3.5-moe w_gate decode", 16, 2 * N_SLOTS, 4096, 6400, _F32, _BF16),
+    ("phi3.5-moe w_gate verify", 16, 2 * VERIFY_ROWS, 4096, 6400, _F32,
+     _BF16),
+    ("phi3.5-moe w_gate prefill", 16, 20, 4096, 6400, _F32, _BF16),
+    ("phi3.5-moe w_down decode", 16, 2 * N_SLOTS, 6400, 4096, _F32, _BF16),
+    ("phi3.5-moe router decode", 1, N_SLOTS, 4096, 16, _F32, _F32),
+    ("phi3.5-moe w_up bf16 decode", 16, 2 * N_SLOTS, 4096, 6400, _BF16,
+     _BF16),
+    ("grok-1 w_down decode", 16, 2 * N_SLOTS, 16384, 6144, _F32, _BF16),
+    ("grok-1 router verify", 1, VERIFY_ROWS, 6144, 8, _F32, _F32),
+    ("gemma3 head 1 row", 1, 1, 5376, 262144, _F32, _BF16),
+    ("gemma3 head verify", 1, VERIFY_ROWS, 5376, 262144, _F32, _BF16),
+]
+GM_F32_TOL = 1e-5
+GM_BF16_TOL = 2e-2
+GM_ROWS = (1, 2, 8, 64, VERIFY_ROWS)
+
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -392,10 +460,10 @@ def reset_launches(kern) -> None:
 
 
 def launch_counts(kern) -> dict:
-    K, FQ, SI, QM, DA = kern
+    K, FQ, SI, QM, DA, GM = kern
     return dict(K.LAUNCHES_BY_ENTRY, fake_quant=FQ.LAUNCHES,
                 ssd_intra_chunk=SI.LAUNCHES, quant_matmul=QM.LAUNCHES,
-                decode_attention=DA.LAUNCHES)
+                decode_attention=DA.LAUNCHES, grouped_matmul=GM.LAUNCHES)
 
 
 def mamba_launches(cfg, prefills, forwards) -> dict:
@@ -406,7 +474,7 @@ def mamba_launches(cfg, prefills, forwards) -> dict:
     return {"bsr_matmul": 0, "bsr_matmul_stacked": 0,
             "fake_quant": 2 * (2 * cfg.n_layers + 1) * forwards,
             "ssd_intra_chunk": cfg.n_layers * prefills, "quant_matmul": 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "grouped_matmul": 0}
 
 
 def compressed_launches(cfg, engine, forwards, paged) -> dict:
@@ -422,7 +490,8 @@ def compressed_launches(cfg, engine, forwards, paged) -> dict:
              "bsr_matmul": forwards} if engine == "scan"
             else {"bsr_matmul_stacked": 0, "bsr_matmul": passes * forwards})
     want.update(fake_quant=passes * forwards, ssd_intra_chunk=0,
-                quant_matmul=0, decode_attention=cfg.n_layers * paged)
+                quant_matmul=0, decode_attention=cfg.n_layers * paged,
+                grouped_matmul=0)
     return want
 
 
@@ -459,26 +528,31 @@ def spec_launches(cfg, rep, masks=None) -> dict:
         attn = cfg.n_layers * (hits + len(ks)) + sum(attn_on) * steps
     return {"bsr_matmul_stacked": stacked, "bsr_matmul": single,
             "fake_quant": stacked + single, "ssd_intra_chunk": 0,
-            "quant_matmul": 0, "decode_attention": attn}
+            "quant_matmul": 0, "decode_attention": attn,
+            "grouped_matmul": 0}
 
 
 @contextlib.contextmanager
-def plain_kernels(kern, attention=False):
+def plain_kernels(kern, attention=False, grouped=False):
     """The block-sparse, fake_quant and ssd_intra wrappers swapped for their
-    plain versions (on the card), and with ``attention`` the
-    decode-attention wrapper too; every other op unchanged."""
-    K, FQ, SI, _, DA = kern
-    saved = K._run, FQ.fake_quant, SI.ssd_intra_chunk, DA.decode_attention
+    plain versions (on the card), with ``attention`` the decode-attention
+    wrapper too and with ``grouped`` the grouped product's; every other op
+    unchanged."""
+    K, FQ, SI, _, DA, GM = kern
+    saved = (K._run, FQ.fake_quant, SI.ssd_intra_chunk, DA.decode_attention,
+             GM.grouped_matmul)
     K._run = lambda entry, x, *ops: K.bsr_matmul_stacked_plain(x, *ops)
     FQ.fake_quant = FQ.fake_quant_plain
     SI.ssd_intra_chunk = SI.ssd_intra_chunk_plain
+    if grouped:
+        GM.grouped_matmul = GM.grouped_matmul_plain
     if attention:
         DA.decode_attention = DA.decode_attention_plain
     try:
         yield
     finally:
-        (K._run, FQ.fake_quant, SI.ssd_intra_chunk,
-         DA.decode_attention) = saved
+        (K._run, FQ.fake_quant, SI.ssd_intra_chunk, DA.decode_attention,
+         GM.grouped_matmul) = saved
 
 
 def da_inputs(torch, cfg, t, sv, gen, dtype, slots=N_SLOTS, q_dtype=None):
@@ -735,6 +809,10 @@ def check_kernels(torch, K, Q, shapes, mars_shapes):
             cases += [("poisoned", None, True), ("truncated", 3, False)]
         run_cases(name, d_in, d_out, TILE, cases,
                   (N_SLOTS, VERIFY_ROWS, PROMPT_ROWS), ("eq5", "f32", "bf16"))
+    # phi3.5-moe's serving tile (phase 12) at its head's shape
+    run_cases("phi3.5-moe head", 4096, 32064, (128, 64),
+              [("", None, False)], (N_SLOTS, VERIFY_ROWS, PROMPT_ROWS),
+              ("eq5", "f32", "bf16"))
     aligned = dict(K.LAUNCHES_BY_PATH)
     assert aligned["single masked"] == aligned["split masked"] == 0, aligned
     K.reset_launches()
@@ -2415,7 +2493,7 @@ def times_mamba(torch, kern, cfg, params):
     event times, each kernel's mean device time per launch
     (``device_ms``)."""
     from repro_torch.core import quant as Q
-    _, FQ, SI, _, _ = kern
+    _, FQ, SI, *_ = kern
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(6)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -2665,7 +2743,7 @@ def train_launches(cfg, steps) -> dict:
     again = 2 if cfg.remat in ("full", "dots") else 1
     ssm = cfg.family == "ssm"
     return {"bsr_matmul": 0, "bsr_matmul_stacked": 0, "quant_matmul": 0,
-            "decode_attention": 0,
+            "decode_attention": 0, "grouped_matmul": 0,
             "fake_quant": 2 * (proj * cfg.n_layers * again + 1) * steps,
             "fake_quant_bwd": 2 * (proj * cfg.n_layers + 1) * steps,
             "ssd_intra_chunk": cfg.n_layers * again * steps * ssm,
@@ -2673,7 +2751,7 @@ def train_launches(cfg, steps) -> dict:
 
 
 def train_counts(kern) -> dict:
-    _, FQ, SI, _, _ = kern
+    _, FQ, SI, *_ = kern
     return dict(launch_counts(kern), fake_quant_bwd=FQ.BWD_LAUNCHES,
                 ssd_intra_chunk_bwd=SI.BWD_LAUNCHES)
 
@@ -2703,7 +2781,7 @@ def train_grads(torch, kern, cfg, tokens):
     from repro_torch.models import registry
     from repro_torch.train import trainer as TR
     from repro_torch.train.optimizer import leaves
-    _, FQ, SI, _, _ = kern
+    _, FQ, SI, *_ = kern
     params = registry.model_fns(cfg).init_params(
         cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
     params = TR.train_state(TR.TrainConfig(), params,
@@ -2906,7 +2984,7 @@ def times_train(torch, kern, cfg_yi, cfg_mamba):
     ms (CUDA events, L2 flushed), the least time for the same work, the
     plain version's ms, no library call (no one PyTorch call computes
     either), the per-launch device ms."""
-    _, FQ, SI, _, _ = kern
+    _, FQ, SI, *_ = kern
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(14)
     rows = []
@@ -3009,7 +3087,8 @@ def cnn_launches(n_convs, steps, train=True) -> dict:
     input is the images)."""
     return {"bsr_matmul": 0, "bsr_matmul_stacked": 0, "quant_matmul": 0,
             "decode_attention": 0, "ssd_intra_chunk": 0,
-            "ssd_intra_chunk_bwd": 0, "fake_quant": 2 * n_convs * steps,
+            "ssd_intra_chunk_bwd": 0, "grouped_matmul": 0,
+            "fake_quant": 2 * n_convs * steps,
             "fake_quant_bwd": (2 * n_convs - 1) * steps * train}
 
 
@@ -3043,7 +3122,7 @@ def cnn_net(torch, kern, net, card):
     from repro_torch.core import sparsity as S
     from repro_torch.data import ImagePipeline
     from repro_torch.models import cnn
-    _, FQ, _, _, _ = kern
+    _, FQ, *_ = kern
     cim = vgg16_cifar.cim_config()
     gen = torch.Generator(device=DEV).manual_seed(0)
     if net == "vgg16":
@@ -3205,7 +3284,7 @@ def times_cnn(torch, kern):
     (3 3 512, 512) at 8 bits signed, and the straight-through backward of
     both (the clamped rule, which reads x): kernel, bound and plain times
     and the device time per launch."""
-    _, FQ, _, _, _ = kern
+    _, FQ, *_ = kern
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(15)
     rows = []
@@ -3313,6 +3392,421 @@ def cnn(torch, kern, card):
     return counts, err, rows
 
 
+def check_grouped_matmul(torch, GM):
+    """Phase 2: the grouped-product kernel against its plain version at
+    phase 12's shapes (GM_SHAPES: the moe configs' router and expert
+    products at decode, verify and prefill rows, gemma3's tied head), f32
+    within GM_F32_TOL of max |plain| and bf16 within GM_BF16_TOL, with and
+    without per-group row counts (rows past a count zero); every call
+    repeated bit for bit; then the property the moe slice stands on: each
+    row bit for bit the same at every row count of GM_ROWS, whatever the
+    other rows hold. Returns the largest |kernel - plain|."""
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    GM.reset_launches()
+    n, worst = 0, 0.0
+    for label, g, r, k, nn, xt, wt in GM_SHAPES:
+        xt, wt = getattr(torch, xt), getattr(torch, wt)
+        x = torch.randn((g, r, k), generator=gen, device=DEV).to(xt)
+        w = (torch.randn((g, k, nn), generator=gen, device=DEV)
+             / k ** 0.5).to(wt)
+        counts = torch.randint(0, r + 1, (g,), generator=gen, device=DEV,
+                               dtype=torch.int32)
+        for c in (None, counts):
+            got = GM.grouped_matmul(x, w, c)
+            again = GM.grouped_matmul(x, w, c)
+            n += 2
+            assert torch.equal(got, again), (label, "repeat")
+            want = GM.grouped_matmul_plain(x, w, c).float()
+            err = float((got.float() - want).abs().max())
+            tol = GM_BF16_TOL if xt == torch.bfloat16 else GM_F32_TOL
+            assert err <= tol * max(1.0, float(want.abs().max())), (label,
+                                                                     err)
+            if c is not None:
+                filled = (torch.arange(r, device=DEV)[None, :]
+                          < c[:, None])
+                assert not got[~filled].any(), (label, "rows past counts")
+            worst = max(worst, err)
+        del x, w, got, again, want
+    rows_checked = 0
+    for label, g, _, k, nn, xt, wt in GM_SHAPES:
+        if not label.endswith("decode"):
+            continue
+        xt, wt = getattr(torch, xt), getattr(torch, wt)
+        x = torch.randn((g, max(GM_ROWS), k), generator=gen,
+                        device=DEV).to(xt)
+        w = (torch.randn((g, k, nn), generator=gen, device=DEV)
+             / k ** 0.5).to(wt)
+        full = GM.grouped_matmul(x, w)
+        n += 1
+        for r in GM_ROWS:
+            part = GM.grouped_matmul(x[:, :r].contiguous(), w)
+            other = torch.cat([x[:, :1], torch.randn(
+                (g, r, k), generator=gen, device=DEV).to(xt)], 1)
+            n += 2
+            assert torch.equal(part, full[:, :r]), (label, r)
+            assert torch.equal(GM.grouped_matmul(other, w)[:, 0],
+                               full[:, 0]), (label, r)
+            rows_checked += 1
+        del x, w, full
+    torch.cuda.synchronize()
+    assert GM.LAUNCHES == n, (GM.LAUNCHES, n)
+    log(f"[kernel] grouped_matmul: {len(GM_SHAPES)} shapes "
+        f"({[s[0] for s in GM_SHAPES]}) within tolerance (f32 "
+        f"{GM_F32_TOL}, bf16 {GM_BF16_TOL} of max |plain|), with and "
+        f"without row counts, each call repeated bit for bit; rows bit for "
+        f"bit equal at R = {GM_ROWS} and beside other rows at the "
+        f"{rows_checked // len(GM_ROWS)} decode shapes; {n} launches; max "
+        f"|kernel - plain| {worst:.3e}")
+    return worst
+
+
+def check_moe_attention(torch, DA, cfgs):
+    """Phase 2: the decode-attention kernel at the heads phase 12 brings,
+    stablelm-12b's dh 160 and grok-1's 6 heads a kv head (its first group
+    that is not a power of two), decode and verify rows over the main
+    path's view and a 1k view, bf16 within DA_TOL of max |plain| and f32 q
+    over bf16 K/V within DA_F32_TOL; each call repeated bit for bit.
+    Returns the largest |kernel - plain|."""
+    gen = torch.Generator(device=DEV).manual_seed(27)
+    worst, n = 0.0, 0
+    for cfg in cfgs:
+        for q_dt, tol in ((torch.bfloat16, DA_TOL),
+                          (torch.float32, DA_F32_TOL)):
+            for sv in DA_VIEWS[:2]:
+                for t in (1, SPEC_K + 1):
+                    q, k, v, pos = da_inputs(torch, cfg, t, sv, gen,
+                                             torch.bfloat16, N_SLOTS, q_dt)
+                    got = DA.decode_attention(q, k, v, pos)
+                    assert torch.equal(got, DA.decode_attention(q, k, v,
+                                                                pos))
+                    want = DA.decode_attention_plain(q, k, v, pos).float()
+                    err = float((got.float() - want).abs().max())
+                    assert err <= tol * max(1.0, float(want.abs().max())), \
+                        (cfg.name, q_dt, sv, t, err)
+                    worst, n = max(worst, err), n + 1
+    heads = [(c.name, c.dh, c.n_heads // c.n_kv_heads) for c in cfgs]
+    log(f"[kernel] decode_attention at {heads} (dh, heads a kv head): {n} "
+        f"cases within tolerance, each repeated bit for bit; max |kernel - "
+        f"plain| {worst:.3e}")
+    return worst
+
+
+def slice_launches(cfg, rep, engine, head_packed, masks=None) -> dict:
+    """The launches of a phase 12 run, from its own report: a moe layer
+    packs its 4 attention projections and runs 4 grouped products a
+    forward (router, gate, up, down); a dense layer packs 7. The head is
+    packed (the block-sparse kernel after eq. 5) or float (gemma3's tied
+    head: one grouped product a forward). ``engine`` is "loop", "scan",
+    "reprune" or "layerskip" (with its ``masks``); the spec forwards are
+    counted as ``spec_launches`` counts them."""
+    moe = cfg.family == "moe"
+    n_l = cfg.n_layers
+    proj, grouped = (4, 4) if moe else (7, 0)
+    hb = int(head_packed)
+    hg = 1 - hb
+    hits = rep.prefix["hits"]
+    if engine in ("loop", "scan"):
+        fw = rep.n_requests + rep.n_decode_steps
+        stacked = proj * n_l * fw if engine == "scan" else 0
+        single = hb * fw if engine == "scan" else (proj * n_l + hb) * fw
+        attn = n_l * (rep.n_decode_steps + hits)
+        gm = (grouped * n_l + hg) * fw
+    else:
+        ks = rep.spec["round_k"]
+        assert len(ks) == rep.spec["n_rounds"] == rep.n_decode_steps
+        if engine == "reprune":
+            full = 2 * rep.n_requests + sum(k + 2 for k in ks)
+            stacked, single = proj * n_l * full, hb * full
+            attn = n_l * (2 * hits + sum(k + 2 for k in ks))
+            gm = (grouped * n_l + hg) * full
+        else:
+            attn_on, mlp_on = masks
+            full, steps = rep.n_requests + len(ks), sum(ks)
+            stacked = proj * n_l * full + (
+                4 * sum(attn_on) + (0 if moe else 3) * sum(mlp_on)) * steps
+            single = hb * (full + steps)
+            attn = n_l * (hits + len(ks)) + sum(attn_on) * steps
+            gm = ((grouped * n_l + hg) * full
+                  + (grouped * sum(mlp_on) + hg) * steps)
+    return {"bsr_matmul_stacked": stacked, "bsr_matmul": single,
+            "fake_quant": stacked + single, "ssd_intra_chunk": 0,
+            "quant_matmul": 0, "decode_attention": attn,
+            "grouped_matmul": gm}
+
+
+def verify_steps_exact(torch, cfg, sxp, sv, depths, label):
+    """A verify pass of SPEC_K + 1 tokens over N_SLOTS rows at positions
+    ``depths`` over an ``sv``-position view against SPEC_K + 1 one-token
+    steps over the view cut just past the deepest position, on the card:
+    logits and K/V bit for bit."""
+    from repro_torch.serve import stacked as ST
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    t = SPEC_K + 1
+    shape = (cfg.n_layers, N_SLOTS, sv, cfg.n_kv_heads, cfg.dh)
+    vk = torch.randn(shape, generator=gen, device=DEV).to(cfg.param_dtype)
+    vv = torch.randn(shape, generator=gen, device=DEV).to(cfg.param_dtype)
+    pos = torch.tensor(depths, dtype=torch.int32, device=DEV)
+    toks = torch.randint(0, cfg.vocab, (N_SLOTS, t), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    rows = torch.arange(N_SLOTS, device=DEV)
+    logits, ks, vs = ST.verify_step(sxp, vk, vv, pos, toks, cfg)
+    cut = -(-(max(depths) + t) // 16) * 16
+    k_seq, v_seq = vk[:, :, :cut].clone(), vv[:, :, :cut].clone()
+    for i in range(t):
+        lg, kn, vn = ST.decode_step_paged(sxp, k_seq, v_seq, pos + i,
+                                          toks[:, i:i + 1], cfg)
+        assert torch.equal(lg, logits[:, i]), (label, "logits", i)
+        assert torch.equal(kn, ks[:, :, i]) and torch.equal(
+            vn, vs[:, :, i]), (label, "K/V", i)
+        k_seq[:, rows, (pos + i).long()] = kn.to(k_seq.dtype)
+        v_seq[:, rows, (pos + i).long()] = vn.to(v_seq.dtype)
+    assert torch.isfinite(logits).all()
+    log(f"[moe] {label}: verify of {t} tokens x {N_SLOTS} rows at "
+        f"positions {list(depths)} over a {sv}-position view equals {t} "
+        f"one-token steps over {cut} positions, logits and K/V bit for bit")
+
+
+def serve_config(torch, kern, arch, layers, draft, card):
+    """Phase 12 for one config: full width, ``layers`` layers, random bf16
+    weights from seed 0, compressed at TILE (clipped to a uniform fit) and
+    SPARSITY, then the trace (8 requests of 32-128 prompt tokens, 16 new;
+    for gemma3 a ninth of GEMMA_PROMPT tokens and GEMMA_NEW new) on the
+    loop and scan runtimes and, with ``draft``, the spec engine; tokens
+    equal bit for bit and launch counts exact per run; verify = steps on
+    the card. Returns (counts, serving summary)."""
+    import numpy as np
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import BatchConfig, BatchServer, Request
+    from repro_torch.serve import deployed as DP
+    from repro_torch.serve import spec as SPM
+    from repro_torch.serve import stacked as ST
+    cfg = registry.get_config(arch, n_layers=layers)
+    full = registry.get_config(arch)
+    log(f"[moe] {arch} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.dh}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}"
+        + (f", {cfg.n_experts} experts x split {cfg.expert_split} top-"
+           f"{cfg.top_k}" if cfg.family == "moe" else "")
+        + (f", window {cfg.window} ratio {cfg.local_global_ratio}"
+           if cfg.window else "")
+        + f", tied head {cfg.tie_embeddings}, {cfg.dtype}); depth cut from "
+        f"{full.n_layers} to {layers} layers; random weights, seed 0")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    sp = DP.compress(cfg, params, target_sparsity=SPARSITY, tile=TILE,
+                     uniform=True)
+    del params
+    torch.cuda.synchronize()
+    tiles = DP.packed_tiles(sp)
+    assert len(tiles) == 1, tiles
+    if cfg.vocab == 32064:  # phi3.5-moe
+        assert tiles == [(128, 64)], tiles  # 32064 = 64 x 501
+    head_packed = sp.head is not None
+    log(f"[moe] {arch}: compress {time.perf_counter() - t0:.1f} s; tile "
+        f"{tiles[0]}; head {'packed' if head_packed else 'tied, float'}; "
+        f"compression_x {sp.report()['compression_x']:.3f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    trace_fn = lambda seed=0: make_trace(Request, cfg.vocab, seed=seed)
+    if arch.startswith("gemma3"):
+        rng = np.random.default_rng(12)
+        long = Request("r8", rng.integers(0, cfg.vocab, GEMMA_PROMPT).astype(
+            np.int32), GEMMA_NEW)
+        trace_fn = lambda seed=0: make_trace(Request, cfg.vocab,
+                                             seed=seed) + [long]
+    bcfg = BatchConfig(n_slots=N_SLOTS, block_size=16, n_blocks=160)
+    runs = [("loop", {}), ("scan", {})]
+    drafted = None
+    if draft == "reprune":
+        drafted = SPM.draft_serving(cfg, sp, SPEC_DRAFT_SPARSITY)
+        runs.append(("reprune", dict(engine="spec", draft=drafted,
+                                     spec=SPM.SpecConfig(k=SPEC_K))))
+    elif draft == "layerskip":
+        runs.append(("layerskip", dict(engine="spec", spec=SPM.SpecConfig(
+            k=SPEC_K, draft="layerskip", keep=SPEC_KEEP))))
+    counts, reports = {}, {}
+    for name, kw in runs:
+        kw = kw or {"engine": name}
+        srv = BatchServer(cfg, sp, bcfg=bcfg, device=DEV, **kw)
+        srv.run(trace_fn(seed=9)[:1])  # warm-up
+        torch.cuda.synchronize()
+        reset_launches(kern)
+        t0 = time.perf_counter()
+        rep = srv.run(trace_fn())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launch_counts(kern)
+        want = slice_launches(cfg, rep, name, head_packed, srv.spec_masks)
+        assert got == want, (arch, name, got, want)
+        assert got["grouped_matmul"] > 0 or cfg.family == "dense" and \
+            head_packed, (arch, name)
+        counts[f"moe {arch} {name}"] = got
+        reports[name] = rep
+        j = rep.to_json()
+        log(f"[moe] {arch} engine={name} requests={rep.n_requests} "
+            f"tokens={rep.total_tokens} decode_steps={rep.n_decode_steps} "
+            f"tokens_per_s={rep.tokens_per_s:.2f} ttft_p50_s="
+            f"{j['ttft']['p50']} decode_step_p50_s={j['tpot']['p50']} "
+            f"prefix_hits={rep.prefix['hits']} wall_s={secs:.3f}"
+            + (f" acceptance_rate={rep.spec['acceptance_rate']} masks="
+               f"{srv.spec_masks}" if rep.spec else "")
+            + f"; launches {got} ({card})")
+        del srv
+    base = reports["scan"]
+    for rid, toks in base.outputs.items():
+        assert ((0 <= toks) & (toks < cfg.vocab)).all(), rid
+        for name, rep in reports.items():
+            assert (rep.outputs[rid] == toks).all(), (arch, name, rid)
+    log(f"[moe] {arch}: {' = '.join(reports)} tokens equal on all "
+        f"{base.n_requests} requests")
+    sxp = ST.stack(sp)
+    depths = ([1030, 1050, 1090, 1180] if arch.startswith("gemma3")
+              else [3, 40, 77, 120])
+    verify_steps_exact(torch, cfg, sxp, 1280 if depths[0] > 1000 else 160,
+                       depths, arch)
+    summary = {"arch": arch, "layers": layers, "tile": list(tiles[0]),
+               "head_packed": head_packed,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               **{name: {"tokens_per_s": rep.tokens_per_s,
+                         "ttft_p50_s": rep.to_json()["ttft"]["p50"],
+                         "decode_step_p50_s": rep.to_json()["tpot"]["p50"]}
+                  for name, rep in reports.items()}}
+    if arch.startswith("phi3.5"):
+        moe_plain_and_refusal(torch, kern, cfg, sp, trace_fn())
+    del sp, sxp, drafted
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def moe_plain_and_refusal(torch, kern, cfg, sp, trace):
+    """phi3.5-moe against the plain path on the card, over a prefill and a
+    decode step of each request of the trace (``parity.prefill_and_step``):
+
+    a. the block-sparse and fake_quant kernels swapped for their plain
+       versions, the grouped product and the attention on their kernels:
+       the logits agree as phase 3's do (the projections' f32 sums of eq. 5
+       data and int8 levels are exact in any order);
+    b. one layer's ``moe_block`` with the grouped product's kernel and with
+       its plain version on the same input, at a prefill's and at one-token
+       steps' rows: the routing equal and y within GM_F32_TOL of max
+       |plain| (f32 sums in another order);
+    c. every kernel plain (attention and the grouped product too): greedy
+       tokens by phase 3's margin rule, printed and not held, as phase 3
+       prints its own (an ulp of the router, expert or attention sums puts
+       an eq. 5 level of a later projection on the other side of a rounding
+       edge now and then, and random weights carry that into the logits).
+
+    Then one direct prefill_last whose padded prompt (MOE_REFUSED_LEN
+    tokens) no token group size divides: the moe block must refuse it as a
+    ValueError, where the reference's reshape fails."""
+    from repro_torch.models import layers as L
+    from repro_torch.serve import deployed as DP
+    from repro_torch.serve import parity as PA
+    kl, pl, al = [], [], []
+    for r in trace:
+        n = len(r.prompt)
+        toks = torch.from_numpy(r.prompt).to(DEV)[None]
+        kl.append(PA.prefill_and_step(sp, toks, n, cfg))
+        nxt = kl[-1][:1].argmax(-1, keepdim=True).to(torch.int32)
+        with plain_kernels(kern):
+            pl.append(PA.prefill_and_step(sp, toks, n, cfg, nxt))
+        with plain_kernels(kern, attention=True, grouped=True):
+            al.append(PA.prefill_and_step(sp, toks, n, cfg, nxt))
+    kl, pl, al = torch.cat(kl), torch.cat(pl), torch.cat(al)
+    assert torch.isfinite(kl).all() and torch.isfinite(al).all()
+    diff = float((kl - pl).abs().max())
+    gen = torch.Generator(device=DEV).manual_seed(41)
+    p = sp.layers[0]
+    gaps = []
+    for b, s in ((1, PROMPT_ROWS), (N_SLOTS * (SPEC_K + 1), 1)):
+        h = torch.randn((b, s, cfg.d_model), generator=gen, device=DEV)
+        y, _ = L.moe_block(p, h, cfg)
+        route = L.moe_route(p, h, cfg)
+        with plain_kernels(kern, grouped=True):
+            want, _ = L.moe_block(p, h, cfg)
+            route_p = L.moe_route(p, h, cfg)
+        assert torch.equal(route.idx, route_p.idx) and torch.equal(
+            route.keep, route_p.keep), (b, s)
+        gap = float((y - want).abs().max())
+        assert gap <= GM_F32_TOL * float(want.abs().max()), (b, s, gap)
+        gaps.append(gap)
+    rule = PA.greedy_margins(kl, al, MARGIN_TOL)
+    log(f"[moe] phi3.5-moe kernel path vs plain path over {len(trace)} "
+        f"prefills and decode steps: block-sparse and fake_quant plain, max "
+        f"|logit diff| {diff:.3e} (held <= 1e-3); moe_block of layer 0 with "
+        f"the grouped product plain, {PROMPT_ROWS}-token prefill and "
+        f"{N_SLOTS * (SPEC_K + 1)} one-token rows: routing equal, max |y "
+        f"diff| {gaps[0]:.3e} / {gaps[1]:.3e} (held within {GM_F32_TOL} of "
+        f"max |plain|); every kernel plain (printed, not held): max |logit "
+        f"diff| {float((kl.float() - al.float()).abs().max()):.4e}, greedy "
+        f"tokens {rule['equal']}/{rule['rows']} equal, divergences (row, "
+        f"kernel top-2 margin) {rule['differ']}, faults above {MARGIN_TOL}: "
+        f"{rule['faults']}")
+    assert diff <= 1e-3, diff
+    toks = torch.zeros((1, MOE_REFUSED_LEN), dtype=torch.int32, device=DEV)
+    try:
+        DP.prefill_last(sp, toks, MOE_REFUSED_LEN - 5, cfg)
+    except ValueError as e:
+        log(f"[moe] prefill_last of {MOE_REFUSED_LEN} padded tokens refused "
+            f"as the reference's reshape refuses it: {e}")
+    else:
+        raise AssertionError(f"a {MOE_REFUSED_LEN}-token moe prefill ran")
+
+
+def moe_configs(torch, kern, card):
+    """Phase 12 (moe-configs): MOE_CONFIGS served in turn (see
+    ``serve_config``). Returns (counts, summaries)."""
+    t_phase = time.perf_counter()
+    counts, summaries = {}, []
+    for arch, layers, draft in MOE_CONFIGS:
+        got, summary = serve_config(torch, kern, arch, layers, draft, card)
+        counts.update(got)
+        summaries.append(summary)
+        log("[moe] summary " + json.dumps(summary))
+    log(f"[moe] phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return counts, summaries
+
+
+def times_grouped_matmul(torch, GM):
+    """Phase 8: the grouped product at phase 12's serving shapes: kernel,
+    bound, plain and library times. Bound: x and the weights read once and
+    y written once over the HBM rate, or 2 K N FLOPs a row at the rate of
+    the inputs' type (f32 x: the CUDA cores' f32 rate; bf16: the bf16
+    tensor-core rate); the larger. Library: one ``torch.bmm`` over x and
+    the weights already in x's type (the widening of bf16 weights for f32
+    x left out of its time)."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    rows = []
+    for label, g, r, k, nn, x_name, w_name in GM_SHAPES:
+        xt, wt = getattr(torch, x_name), getattr(torch, w_name)
+        x = torch.randn((g, r, k), generator=gen, device=DEV).to(xt)
+        w = (torch.randn((g, k, nn), generator=gen, device=DEV)
+             / k ** 0.5).to(wt)
+        wx = w.to(xt)
+        nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+                  + g * r * nn * x.element_size())
+        rate = BF16_TC_FLOPS_PER_S if xt == torch.bfloat16 else \
+            F32_FLOPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, 2 * g * r * k * nn, rate)
+        row = {"shape": f"grouped_matmul {label}", "entry": "grouped_matmul",
+               "G": g, "R": r, "K": k, "N": nn,
+               "x": x_name, "w": w_name,
+               "kernel_ms": time_ms(torch, lambda: GM.grouped_matmul(x, w),
+                                    flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": time_ms(torch, lambda: GM.grouped_matmul_plain(
+                   x, w), flush, iters=10),
+               "library_ms": time_ms(torch, lambda: torch.bmm(x, wx),
+                                     flush)}
+        rows.append(row)
+        log(json.dumps(row))
+        del x, w, wx
+    return rows
+
+
 def main() -> int:
     # the train phase runs under torch.use_deterministic_algorithms, whose
     # cuBLAS needs a fixed workspace, read when cuBLAS starts
@@ -3331,7 +3825,7 @@ def main() -> int:
 
 
 def run_all(torch, search) -> int:
-    """Phases 1-11 (see the module docstring); ``search`` is the full-depth
+    """Phases 1-12 (see the module docstring); ``search`` is the full-depth
     schedule search's process, read by phase 9."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import quant as Q
@@ -3339,6 +3833,7 @@ def run_all(torch, search) -> int:
     from repro_torch.kernels import cim_bsr_matmul as K
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import fake_quant as FQ
+    from repro_torch.kernels import grouped_matmul as GM
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels import ssd_intra as SI
     from repro_torch.models import registry
@@ -3371,7 +3866,7 @@ def run_all(torch, search) -> int:
               ("w_gate", cfg.d_model, cfg.d_ff),
               ("w_down", cfg.d_ff, cfg.d_model),
               ("head", cfg.d_model, cfg.vocab)]
-    kern = (K, FQ, SI, QM, DA)
+    kern = (K, FQ, SI, QM, DA, GM)
     mcfg = registry.get_config("mamba2-780m", cim_mode="qat")
     max_err = check_kernels(torch, K, Q, shapes, AT.projection_shapes(
         registry.get_config("yi-6b")))
@@ -3381,6 +3876,11 @@ def run_all(torch, search) -> int:
     max_err["decode_attention"] = check_decode_attention(torch, DA, cfg)
     max_err["fake_quant_bwd"] = check_fake_quant_bwd(torch, FQ)
     max_err["ssd_intra_chunk_bwd"] = check_ssd_intra_bwd(torch, SI, mcfg)
+    max_err["grouped_matmul"] = check_grouped_matmul(torch, GM)
+    max_err["decode_attention"] = max(
+        max_err["decode_attention"], check_moe_attention(torch, DA, [
+            registry.get_config(a) for a in ("stablelm-12b",
+                                             "grok-1-314b")]))
 
     log(f"[serve] yi-6b at full width ({cfg.d_model} wide, {cfg.n_heads}/"
         f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
@@ -3420,6 +3920,8 @@ def run_all(torch, search) -> int:
     counts.update(train(torch, kern, card))
     cnn_counts, deploy_err, cnn_rows = cnn(torch, kern, card)
     counts.update(cnn_counts)
+    moe_counts, _ = moe_configs(torch, kern, card)
+    counts.update(moe_counts)
     max_err["bsr_matmul"] = max(max_err["bsr_matmul"], deploy_err)
 
     profile_serve(torch, cfg, sp)
@@ -3433,21 +3935,24 @@ def run_all(torch, search) -> int:
             + times_quant_matmul(torch, QM, cfg, mlp, bench)
             + times_decode_attention(torch, DA, cfg)
             + times_train(torch, kern, registry.get_config("yi-6b"), mcfg)
-            + cnn_rows + times_cnn(torch, kern))
+            + cnn_rows + times_cnn(torch, kern)
+            + times_grouped_matmul(torch, GM))
     pick = {"bsr_matmul_stacked": "w_gate decode", "bsr_matmul": "head decode",
             "fake_quant": "fake_quant act prefill",
             "ssd_intra_chunk": "ssd_intra serve",
             "quant_matmul": "quant_matmul w_gate decode",
             "decode_attention": f"decode_attention decode {DA_VIEWS[0]}",
             "fake_quant_bwd": "fake_quant_bwd act train",
-            "ssd_intra_chunk_bwd": "ssd_intra_bwd train"}
+            "ssd_intra_chunk_bwd": "ssd_intra_bwd train",
+            "grouped_matmul": "grouped_matmul phi3.5-moe w_gate decode"}
     source = {"bsr_matmul_stacked": "bsr_matmul.cu",
               "bsr_matmul": "bsr_matmul.cu", "fake_quant": "fake_quant.cu",
               "ssd_intra_chunk": "ssd_intra.cu",
               "quant_matmul": "quant_matmul.cu",
               "decode_attention": "decode_attention.cu",
               "fake_quant_bwd": "fake_quant.cu",
-              "ssd_intra_chunk_bwd": "ssd_intra_bwd.cu"}
+              "ssd_intra_chunk_bwd": "ssd_intra_bwd.cu",
+              "grouped_matmul": "grouped_matmul.cu"}
     replaces = {"bsr_matmul": "src/repro/kernels/cim_bsr_matmul.py:83",
                 "bsr_matmul_stacked": "src/repro/kernels/cim_bsr_matmul.py:138",
                 "fake_quant": "src/repro/kernels/fake_quant.py:28",
@@ -3459,7 +3964,10 @@ def run_all(torch, search) -> int:
                 # no Pallas kernel: JAX's autodiff of the reference's plain
                 # jnp (round_ste and jnp.clip; the SSD's intra-chunk einsum)
                 "fake_quant_bwd": "src/repro/core/quant.py:45",
-                "ssd_intra_chunk_bwd": "src/repro/models/ssm.py:29"}
+                "ssd_intra_chunk_bwd": "src/repro/models/ssm.py:29",
+                # no Pallas kernel: the reference's XLA products of
+                # moe_block (router :352, experts :395-398) and a float head
+                "grouped_matmul": "src/repro/models/layers.py:395"}
     kernels = []
     for entry in pick:
         row = next(r for r in rows if r["shape"] == pick[entry])
@@ -3473,7 +3981,7 @@ def run_all(torch, search) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
         if entry in ("bsr_matmul_stacked", "bsr_matmul",
-                     "decode_attention"):
+                     "decode_attention", "grouped_matmul"):
             # the entry's timed row that fares worst against its library
             # call, so that a losing row cannot hide behind the picked one
             own = [r for r in rows if r.get("entry") == entry]

@@ -1,6 +1,6 @@
 """Kernel-facing helpers: deployment packing, the BSR matmul entry points
-over packed dicts, and the fake-quant, dense int8 matmul and paged
-decode-attention entry points."""
+over packed dicts, and the fake-quant, dense int8 matmul, paged
+decode-attention and grouped float product entry points."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,6 +11,7 @@ import torch
 from ..core.mapping import pack_bsr
 from . import cim_bsr_matmul, fake_quant as _fq, quant_matmul as _qm
 from . import decode_attention as _da
+from . import grouped_matmul as _gm
 from .decode_attention import row_sum  # noqa: F401  (the norms' row sums)
 
 
@@ -81,3 +82,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, KV, dh) when given; each row's sums in one order whatever T and
     Sv."""
     return _da.decode_attention(q, k, v, pos, window, n_true, k_new, v_new)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x[g] @ w[g]`` for x (G, R, K) and w (G, K, N) in x's type, on the
+    kernel: each row's K sum in one order whatever R, so a row comes out
+    the same in a one-token step and in a multi-token pass. Rows at or
+    past ``counts[g]`` are zeros."""
+    return _gm.grouped_matmul(x, w, counts)

@@ -7,12 +7,16 @@ runs its layer-indexed form, a raw tensor is a dense product (in QAT mode
 between the fake-quantized activations and weight, eqs. 5-8, on the
 fake-quant kernel). The paged decode and verify attention runs on the
 decode-attention kernel (``kernels/decode_attention.py``), which keeps a
-verify position equal to a one-token step; prefill attention, norms and
-RoPE stay plain torch, as the reference leaves them to XLA.
+verify position equal to a one-token step; the MoE router and expert
+products and a float head on the paged pass run on the grouped-product
+kernel (``kernels/grouped_matmul.py``) for the same reason; prefill
+attention, norms and RoPE stay plain torch, as the reference leaves them to
+XLA.
 Layouts follow the reference: (B, S, H, dh) activations and caches.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -203,12 +207,146 @@ def gated_mlp(p: dict, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
     return cim_matmul(h, p["w_down"], cim)
 
 
+@dataclasses.dataclass
+class MoERoute:
+    """One ``moe_block`` call's routing, token groups flattened: ``gates``
+    (G0, gs, e) f32 softmax; ``idx`` (G0, gs, k) the top-k experts, ties to
+    the lower index; ``slot`` each choice's place in its expert's capacity;
+    ``keep`` = slot < cap; ``gate`` the renormalized top-k gates, zero
+    where dropped; ``onehot`` (G0, gs, k, e) int64."""
+
+    gates: torch.Tensor
+    idx: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    gate: torch.Tensor
+    onehot: torch.Tensor
+    cap: int
+
+
+def moe_route(p: dict, x: torch.Tensor, cfg) -> MoERoute:
+    """The routing of :func:`moe_block` (the reference's
+    ``layers.moe_block`` up to ``gate_k * keep``). ``s`` must be a multiple
+    of the group size, or the reference's reshape fails: so does this."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    gs = min(cfg.moe_group_size, s)
+    if s % gs:
+        raise ValueError(f"moe_block: sequence length {s} is not a multiple "
+                         f"of the token group size {gs} (moe_group_size "
+                         f"{cfg.moe_group_size})")
+    g0 = b * (s // gs)
+    cap = max(k, int(cfg.capacity_factor * gs * k / e))
+    logits = ops.grouped_matmul(x.reshape(1, b * s, d).float(),
+                                p["router"].float()[None])
+    gates = torch.softmax(logits.reshape(g0, gs, e), dim=-1)
+    # a stable descending sort puts equal gates in index order, as
+    # jax.lax.top_k does
+    gate, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    gate, idx = gate[..., :k], idx[..., :k]
+    total = gate[..., 0]
+    for j in range(1, k):
+        total = total + gate[..., j]
+    gate = gate / (total + 1e-9)[..., None]
+    onehot = F.one_hot(idx, e)  # (g0, gs, k, e)
+    pos = onehot.reshape(g0, gs * k, e).cumsum(dim=1).reshape(
+        g0, gs, k, e) - 1
+    slot = pos.gather(-1, idx[..., None])[..., 0]
+    keep = slot < cap
+    return MoERoute(gates=gates, idx=idx, slot=slot, keep=keep,
+                    gate=gate * keep, onehot=onehot, cap=cap)
+
+
+def moe_block(p: dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Top-k MoE with grouped capacity dispatch; x (B, S, D) -> (y, aux).
+
+    The reference's semantics (token groups of ``moe_group_size``, the
+    capacity per group, drops past it, ``expert_split`` sub-experts taking
+    their expert's dispatch, eq. 5/eqs. 6-8 on the expert inputs and
+    stacks in QAT mode), with its one-hot einsums replaced by a gather and
+    a scatter, which a one-hot product computes exactly. Each expert's
+    kept choices take its first rows, in (group, slot) order, so the
+    products run on the grouped-product kernel with each expert's filled
+    row count. The combine adds each token's terms in f32, in sub-expert
+    order, and rounds once to ``x.dtype``. Every step is row by row or
+    elementwise, so a token's output does not depend on the other tokens
+    of its call beyond the routing the reference gives it."""
+    b, s, d = x.shape
+    cim = cfg.cim
+    e, k, split = cfg.n_experts, cfg.top_k, cfg.expert_split
+    rt = moe_route(p, x, cfg)
+    g0, gs = rt.idx.shape[:2]
+    rmax = g0 * rt.cap
+    # kept rows an expert takes from each group, and where each group's
+    # rows start in that expert's list
+    taken = rt.onehot.sum(dim=(1, 2)).clamp(max=rt.cap)  # (g0, e)
+    start = taken.cumsum(dim=0) - taken
+    row = start.gather(1, rt.idx.reshape(g0, gs * k)).reshape(
+        g0, gs, k) + rt.slot
+    row = torch.where(rt.keep, row, rmax)  # a dropped choice: spare row
+    xin = x.new_zeros((e, rmax + 1, d))
+    src = x.reshape(g0, gs, 1, d).expand(g0, gs, k, d).reshape(-1, d)
+    xin.index_put_((rt.idx.reshape(-1), row.reshape(-1)), src)
+    xin = xin[:, :rmax]
+    counts = taken.sum(dim=0)  # (e,)
+    if split > 1:
+        xin = xin.repeat_interleave(split, dim=0)
+        counts = counts.repeat_interleave(split)
+
+    def experts(w):  # eqs. 6-8 in x's type in QAT mode, as the reference
+        return maybe_quant_w(w.to(x.dtype), cim) if cim.mode == "qat" else w
+
+    xin = maybe_quant_a(xin, cim)
+    h = F.silu(ops.grouped_matmul(xin, experts(p["w_gate"]), counts))
+    h = maybe_quant_a(h * ops.grouped_matmul(xin, experts(p["w_up"]),
+                                             counts), cim)
+    out = ops.grouped_matmul(h, experts(p["w_down"]), counts)
+
+    # each token's (choice, sub-expert) terms in ascending sub-expert order
+    order = rt.idx.argsort(dim=-1)
+    pick = lambda t: t.gather(-1, order)
+    idx, row, keep = pick(rt.idx), pick(row), pick(rt.keep)
+    gate = pick(rt.gate).to(x.dtype).float()
+    row = torch.where(keep, row, 0)
+    y = None
+    for j in range(k):
+        for sub in range(split):
+            term = gate[..., j, None] * out[idx[..., j] * split + sub,
+                                            row[..., j]].float()
+            term = torch.where(keep[..., j, None], term, 0.0)
+            y = term if y is None else y + term
+    y = y.to(x.dtype).reshape(b, s, d)
+
+    frac_tokens = rt.onehot.sum(dim=2).float().mean(dim=(0, 1))  # (e,)
+    frac_router = rt.gates.mean(dim=(0, 1))
+    aux = e * (frac_tokens * frac_router).sum()
+    return y, aux
+
+
 def embed(emb: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return emb[tokens.long()].to(dtype)
 
 
 def logits_out(head, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
     return cim_matmul(x, head, cim)
+
+
+def logits_rows(head, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
+    """:func:`logits_out` with a float head's product on the grouped-product
+    kernel, whose rows do not depend on the row count (the library product
+    picks its sum order from it on the card). The paged decode and verify
+    passes and the batch server's prefill use it, so a verify position's
+    logits equal a one-token step's through a tied or dense head too. A
+    packed head runs the block-sparse kernel, as in :func:`logits_out`."""
+    if not torch.is_tensor(head):
+        return logits_out(head, x, cim)
+    if cim.mode == "qat":
+        x, head = maybe_quant_a(x, cim), maybe_quant_w(head, cim)
+        x = x.to(torch.promote_types(x.dtype, head.dtype))
+    lead = x.shape[:-1]
+    y = ops.grouped_matmul(x.reshape(1, -1, x.shape[-1]), head[None])
+    return y.reshape(*lead, head.shape[-1])
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -20,7 +20,8 @@ class ModelFns:
 
 
 def model_fns(cfg: ModelConfig) -> ModelFns:
-    """The model functions of ``cfg``'s family (dense and ssm so far)."""
+    """The model functions of ``cfg``'s family (dense, moe and ssm so
+    far)."""
     if cfg.family not in transformer.FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet "

@@ -1,14 +1,16 @@
-"""Decoder-only LM, dense and ssm (mamba2) families: parameters, the
+"""Decoder-only LM, dense, moe and ssm (mamba2) families: parameters, the
 full-sequence forward, and the static-batch serving entry points
-(``prefill``, ``init_cache``, ``pad_cache``, ``decode_step``).
+(``prefill``, ``init_cache``, ``pad_cache``, ``decode_step``). The moe
+family serves; its training is not ported yet (``train_loss`` refuses it).
 
 Parameters keep the reference's pytree layout as a plain dict: ``embed``,
 ``final_ln``, ``head`` (absent with tied embeddings) and ``layers``, whose
 leaves are stacked along a leading layer axis. The layer loop runs on the
 host, where the reference scans. A decode cache is a dict of stacked
-tensors (dense: ``k``/``v`` (L,B,S,KV,dh); ssm: ``conv`` (L,B,W-1,C) and
-``ssm`` (L,B,H,P,N)) plus ``pos``, a Python int; ``decode_step`` updates
-its tensors in place, where the reference donates the cache to its jit.
+tensors (dense and moe: ``k``/``v`` (L,B,S,KV,dh); ssm: ``conv``
+(L,B,W-1,C) and ``ssm`` (L,B,H,P,N)) plus ``pos``, a Python int;
+``decode_step`` updates its tensors in place, where the reference donates
+the cache to its jit.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from . import layers as L
 from . import ssm as SSM
 from .config import ModelConfig
 
-FAMILIES = ("dense", "ssm")  # the families ported so far
+FAMILIES = ("dense", "moe", "ssm")  # the families ported so far
+ATTENTION = ("dense", "moe")  # the families with a KV cache
 
 
 def _attn_layer_init(g: torch.Generator, cfg: ModelConfig, dtype,
@@ -53,10 +56,26 @@ def _attn_layer_init(g: torch.Generator, cfg: ModelConfig, dtype,
         "wo": padded((nh * dh, d), 0, cfg.n_heads, nh)
         * (d ** 0.5 / (nh * dh) ** 0.5),
         "ln2": zeros(),
-        "w_gate": normal((d, cfg.d_ff), s),
-        "w_up": normal((d, cfg.d_ff), s),
-        "w_down": normal((cfg.d_ff, d), 1.0 / cfg.d_ff ** 0.5),
+        **_mlp_init(g, cfg, dtype, device, normal, s),
     }
+
+
+def _mlp_init(g: torch.Generator, cfg: ModelConfig, dtype,
+              device: torch.device, normal, s: float) -> dict:
+    """The gated MLP's weights, or the moe family's f32 router and expert
+    stacks (``expert_split`` sub-experts of d_ff / split each)."""
+    d = cfg.d_model
+    if cfg.family != "moe":
+        return {"w_gate": normal((d, cfg.d_ff), s),
+                "w_up": normal((d, cfg.d_ff), s),
+                "w_down": normal((cfg.d_ff, d), 1.0 / cfg.d_ff ** 0.5)}
+    e_eff = cfg.n_experts * cfg.expert_split
+    ff = cfg.d_ff // cfg.expert_split
+    return {"router": torch.randn((d, cfg.n_experts), generator=g,
+                                  dtype=torch.float32, device=device) * s,
+            "w_gate": normal((e_eff, d, ff), s),
+            "w_up": normal((e_eff, d, ff), s),
+            "w_down": normal((e_eff, ff, d), 1.0 / cfg.d_ff ** 0.5)}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -92,14 +111,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def _attn_mlp_body(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
                    theta: Optional[float], positions: torch.Tensor):
-    """One transformer block (full sequence). Returns (x, (k, v))."""
+    """One transformer block (full sequence). Returns (x, aux, (k, v)):
+    aux is the moe family's load-balancing loss, None for the dense one."""
     cfg_l = cfg if theta is None else _with_theta(cfg, theta)
     h = L.rmsnorm(x, p["ln1"])
     attn, kv = L.self_attention(p, h, cfg_l, window=window,
                                 positions=positions)
     x = x + attn
-    h = L.rmsnorm(x, p["ln2"])
-    return x + L.gated_mlp(p, h, cfg.cim), kv
+    y, aux = mlp(p, L.rmsnorm(x, p["ln2"]), cfg)
+    return x + y, aux, kv
+
+
+def mlp(p: dict, h: torch.Tensor, cfg: ModelConfig):
+    """The block's MLP: the moe family's ``moe_block``, else the gated MLP
+    (no aux loss). Returns (y, aux or None)."""
+    if cfg.family == "moe":
+        return L.moe_block(p, h, cfg)
+    return L.gated_mlp(p, h, cfg.cim), None
 
 
 def _with_theta(cfg: ModelConfig, theta: float) -> ModelConfig:
@@ -166,17 +194,19 @@ def _maybe_remat(fn, cfg: ModelConfig, x: torch.Tensor):
 
 def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
                    collect_cache: bool = False):
-    """Returns (hidden (B,S,D), aux loss (0 for these families),
-    cache-or-None)."""
+    """Returns (hidden (B,S,D), aux loss (the moe family's summed over
+    layers, else 0), cache-or-None)."""
     x = _embed_inputs(params, batch, cfg)
     parts = []
-    if cfg.family == "dense":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ATTENTION:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         windows, thetas = _layer_kind_arrays(cfg)
         body = _maybe_remat(_attn_mlp_body, cfg, x)
         for i in range(cfg.n_layers):
-            x, kv = body(_layer(params, i), x, cfg, windows[i], thetas[i],
-                         positions)
+            x, a, kv = body(_layer(params, i), x, cfg, windows[i], thetas[i],
+                            positions)
+            aux = aux if a is None else aux + a
             parts.append(kv)
         names = ("k", "v")
     else:  # ssm
@@ -189,14 +219,17 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
     if collect_cache:
         cache = {name: torch.stack([t[j] for t in parts])
                  for j, name in enumerate(names)}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rmsnorm(x, params["final_ln"]), aux, cache
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Next-token CE (+ 0.01 aux, 0 for these families). batch: tokens
     (B,S) [, loss_mask (B,S)]; padded vocab columns are masked before the
-    softmax."""
+    softmax. The moe family's training is not ported yet."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "train_loss: the moe family serves but does not train yet "
+            "(its aux loss and expert gradients are not ported)")
     hidden, aux, _ = forward_hidden(params, batch, cfg)
     logits = L.logits_out(_head(params), hidden, cfg.cim)
     if cfg.vocab_eff != cfg.vocab:
@@ -225,7 +258,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
     dev = resolve_device(device)
     z = lambda *shape: torch.zeros(shape, dtype=dtype or cfg.param_dtype,
                                    device=dev)
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION:
         shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads_eff,
                  cfg.dh)
         return {"k": z(*shape), "v": z(*shape), "pos": 0}
@@ -252,7 +285,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     """One decode step. tokens: (B, 1). Returns (logits (B,V), cache): the
     cache's tensors are updated in place and ``pos`` advanced."""
     x = L.embed(params["embed"], tokens, cfg.param_dtype)
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION:
         x = decode_layers_dense(
             (_layer(params, i) for i in range(cfg.n_layers)), x, cache, cfg)
     else:
@@ -272,9 +305,10 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
 
 def decode_layers_dense(layers, x: torch.Tensor, cache: dict,
                         cfg: ModelConfig) -> torch.Tensor:
-    """The dense family's decode over per-layer param dicts (``layers``,
-    one per layer, in order): x (B, 1, D) at position ``cache["pos"]``,
-    each layer's new K/V written into the contiguous cache in place.
+    """The dense and moe families' decode over per-layer param dicts
+    (``layers``, one per layer, in order): x (B, 1, D) at position
+    ``cache["pos"]``, each layer's new K/V written into the contiguous
+    cache in place.
     Returns the residual stream after the last layer; ``pos`` is left for
     the caller to advance."""
     pos = cache["pos"]
@@ -288,5 +322,5 @@ def decode_layers_dense(layers, x: torch.Tensor, cache: dict,
         cache["k"][i, :, pos] = k[:, 0].to(cache["k"].dtype)
         cache["v"][i, :, pos] = v[:, 0].to(cache["v"].dtype)
         x = x + attn
-        x = x + L.gated_mlp(p, L.rmsnorm(x, p["ln2"]), cfg.cim)
+        x = x + mlp(p, L.rmsnorm(x, p["ln2"]), cfg)[0]
     return x

@@ -39,10 +39,11 @@ from ..sched.graph import lm_graph
 from ..sched.search import search_mapping
 from ..train import checkpoint as ckpt
 
-# projections deployed per transformer block
+# projections deployed per transformer block (2-D leaves only: the moe
+# family's expert stacks are 3-D and stay float, as does its router)
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
-SUPPORTED_FAMILIES = ("dense",)
+SUPPORTED_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -326,10 +327,18 @@ def _head(sp):
     return sp.head_t if sp.head_t is not None else sp.embed.T
 
 
-def _mlp(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Dense-family MLP. It is position-independent, so a T-token pass has
-    sequential-decode semantics per token as it is."""
-    return L.gated_mlp(p, h, cfg.cim)
+def _mlp_tokenwise(p: dict, h: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """The MLP over (B, T, D) with one-token-step semantics per token. The
+    dense MLP is position-independent as it is; ``moe_block`` computes its
+    capacity from the sequence length, so a T-token pass would share it
+    among the T tokens and could drop a choice a one-token step keeps.
+    Folding T into the batch gives every token the s = 1 routing of a
+    decode step (the reference's ``_mlp_tokenwise``)."""
+    b, t, d = h.shape
+    if cfg.family == "moe":
+        h = h.reshape(b * t, 1, d)
+    return transformer.mlp(p, h, cfg)[0].reshape(b, t, d)
 
 
 def prefill_hidden(sp, batch: dict, cfg: ModelConfig):
@@ -340,8 +349,8 @@ def prefill_hidden(sp, batch: dict, cfg: ModelConfig):
     windows, thetas = transformer._layer_kind_arrays(cfg)
     ks, vs = [], []
     for i, p in enumerate(sp.layer_params()):
-        x, (k, v) = transformer._attn_mlp_body(p, x, cfg, windows[i],
-                                               thetas[i], positions)
+        x, _, (k, v) = transformer._attn_mlp_body(p, x, cfg, windows[i],
+                                                  thetas[i], positions)
         ks.append(k)
         vs.append(v)
     return L.rmsnorm(x, sp.final_ln), {"k": torch.stack(ks),
@@ -361,7 +370,7 @@ def prefill(sp, batch: dict, cfg: ModelConfig):
 def decode_step(sp, cache: dict, tokens: torch.Tensor, cfg: ModelConfig):
     """Engine-signature decode over a contiguous cache with a scalar
     ``pos``, updated in place; the same math as ``transformer.decode_step``
-    (dense branch), layer by layer over ``sp.layer_params()``."""
+    (attention families), layer by layer over ``sp.layer_params()``."""
     x = L.embed(sp.embed, tokens, cfg.param_dtype)
     x = transformer.decode_layers_dense(sp.layer_params(), x, cache, cfg)
     cache["pos"] += 1
@@ -373,11 +382,13 @@ def prefill_last(sp, tokens: torch.Tensor, true_len: int, cfg: ModelConfig):
     """Prefill for the batch server: ``tokens`` (B, S_pad) may be padded
     past the prompt; logits are taken at ``true_len - 1``. Causality keeps
     the pad positions out of them, and their cache entries sit at positions
-    >= true_len, which decode overwrites before it attends to them."""
+    >= true_len, which decode overwrites before it attends to them (the
+    moe family's capacity does see the padded length, as the reference's
+    does). A float head's product runs row by row (``logits_rows``)."""
     hidden, cache = prefill_hidden(sp, {"tokens": tokens}, cfg)
     h_last = hidden[:, int(true_len) - 1]
-    logits = L.logits_out(_head(sp), h_last[:, None, :],
-                          cfg.cim)[:, 0, : cfg.vocab]
+    logits = L.logits_rows(_head(sp), h_last[:, None, :],
+                           cfg.cim)[:, 0, : cfg.vocab]
     return logits, cache["k"], cache["v"]
 
 
@@ -390,8 +401,11 @@ def _paged_pass(sp, views_k: torch.Tensor, views_v: torch.Tensor,
     layer, None = all on) skip sublayers: a skipped one runs no op at all,
     and a skipped attention returns zero K/V rows. The attention takes its
     sums in an order fixed by each query row (the decode-attention kernel)
-    and the norms theirs row by row (``rmsnorm_rows``), so a position's
-    logits do not depend on T, the batch or the view's length."""
+    and the norms theirs row by row (``rmsnorm_rows``), the moe family's
+    router and experts and a float head take the grouped-product kernel's
+    row-by-row products, and each token is routed alone
+    (:func:`_mlp_tokenwise`), so a position's logits do not depend on T,
+    the batch or the view's length."""
     x = L.embed(sp.embed, tokens, cfg.param_dtype)  # (B, T, D)
     windows, thetas = transformer._layer_kind_arrays(cfg)
     ks, vs = [], []
@@ -410,11 +424,11 @@ def _paged_pass(sp, views_k: torch.Tensor, views_v: torch.Tensor,
             kn = vn = zeros
         if mlp_on is None or mlp_on[i]:
             h = L.rmsnorm_rows(x, p["ln2"])
-            x = x + _mlp(p, h, cfg)
+            x = x + _mlp_tokenwise(p, h, cfg)
         ks.append(kn)
         vs.append(vn)
     x = L.rmsnorm_rows(x, sp.final_ln)
-    logits = L.logits_out(_head(sp), x, cfg.cim)[..., : cfg.vocab]
+    logits = L.logits_rows(_head(sp), x, cfg.cim)[..., : cfg.vocab]
     return logits, torch.stack(ks), torch.stack(vs)
 
 

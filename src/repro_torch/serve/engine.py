@@ -1,6 +1,6 @@
 """Static-batch serving engine: prefill + decode with KV/state caches.
 
-:class:`Engine` serves the dense and ssm families: greedy or temperature
+:class:`Engine` serves the dense, moe and ssm families: greedy or temperature
 sampling, per-sequence EOS tracking (a finished row keeps decoding but its
 output is frozen), the cache updated in place by every decode step. For
 request-level continuous batching see ``serve.server.BatchServer``.
@@ -62,7 +62,7 @@ class Engine:
         n_new = max_new_tokens or scfg.max_new_tokens
         bsz, s = batch["tokens"].shape
         logits, cache = self.fns.prefill(self.params, batch, self.cfg)
-        if self.cfg.family == "dense":
+        if self.cfg.family in transformer.ATTENTION:
             cache = transformer.pad_cache(cache, s + n_new)
         gen = None
         if scfg.temperature > 0.0:

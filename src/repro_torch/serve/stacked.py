@@ -13,6 +13,16 @@ syncs with the host per layer and stays capturable by a CUDA graph.
 The forward code is the loop runtime's own (``serve.deployed``), run over
 the layer views; for the same ServingParams both runtimes give
 bit-identical tokens.
+
+Memory: a ServingParams and its StackedParams hold the float leaves once.
+Per-layer leaves that are, in order, the layers of one tensor (what
+``deployed.from_params`` and ``compress`` make of model params) are
+stacked by taking that tensor as it is; any others are copied into a new
+stack once, and the ServingParams' per-layer leaves are rebound to views
+of it, so the per-layer copies are freed when nothing else holds them. The
+values do not change, so both runtimes stay bit-equal. (A grok-1 layer's
+expert stacks are 9.7 GB in bf16: two copies of them would not fit the
+loop and scan runtimes on one card.)
 """
 from __future__ import annotations
 
@@ -62,7 +72,9 @@ class StackedParams:
 
 def stack(sp: DP.ServingParams) -> StackedParams:
     """ServingParams (per-layer dicts) -> StackedParams. Every projection
-    must be packed in all layers or in none, with one uniform tile."""
+    must be packed in all layers or in none, with one uniform tile. A float
+    leaf stacked by a copy is rebound in ``sp`` to a view of the copy (see
+    the module docstring)."""
     if not sp.layers:
         raise ValueError("stack: ServingParams has no layers")
     keys = list(sp.layers[0].keys())
@@ -78,7 +90,11 @@ def stack(sp: DP.ServingParams) -> StackedParams:
         if n_packed == len(vs):
             packed[k] = D.stack_deployed(vs)
         elif n_packed == 0:
-            dense[k] = torch.stack(vs)
+            dense[k] = _layers_of_one_tensor(vs)
+            if dense[k] is None:
+                dense[k] = torch.stack(vs)
+                for i, p in enumerate(sp.layers):  # free the per-layer copy
+                    p[k] = dense[k][i]
         else:
             raise ValueError(
                 f"stack: projection {k!r} is packed in {n_packed}/{len(vs)} "
@@ -88,6 +104,20 @@ def stack(sp: DP.ServingParams) -> StackedParams:
     return StackedParams(embed=sp.embed, final_ln=sp.final_ln, dense=dense,
                          packed=packed, layer_ids=layer_ids, head=sp.head,
                          head_t=sp.head_t)
+
+
+def _layers_of_one_tensor(vs: List[torch.Tensor]):
+    """The (L, ...) tensor whose layers ``vs`` are, in order, or None."""
+    base = vs[0]._base
+    if (base is None or base.dim() != vs[0].dim() + 1
+            or base.shape[0] != len(vs)):
+        return None
+    for i, v in enumerate(vs):
+        if (v._base is not base or v.shape != base.shape[1:]
+                or v.stride() != base.stride()[1:]
+                or v.data_ptr() != base[i].data_ptr()):
+            return None
+    return base
 
 
 # ModelFns over a StackedParams (``serve.Engine(cfg, stack(sp),

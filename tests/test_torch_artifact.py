@@ -205,3 +205,47 @@ def test_tied_head_is_rebuilt(tmp_path):
     back, _ = TDP.load_artifact(str(tmp_path), device="cpu")
     assert torch.equal(back.head_t, back.embed.T)
     assert back.head_t.is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_artifact_both_ways(tmp_path, dtype):
+    """A reference-written phi3.5-moe smoke artifact (family "moe"; the
+    f32 routers and the 3-D expert stacks stay float beside the packed
+    attention and head) boots in the port bit for bit and serves the
+    reference's tokens; the port writes it back, and the reference boots
+    that (f32: the reference cannot read bf16 leaves back)."""
+    from repro.serve.batching import Request as RRequest
+    from repro.serve.server import BatchConfig as RBatchConfig
+    from repro.serve.server import BatchServer as RBatchServer
+    from repro_torch.serve import BatchConfig, BatchServer, Request
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg = RR.get_smoke_config(arch, dtype=dtype)
+    params = RR.model_fns(cfg).init_params(cfg, jax.random.PRNGKey(0))
+    rsp = RDP.compress(cfg, params, target_sparsity=0.6, tile=(16, 16),
+                       uniform=True)
+    ref_dir = str(tmp_path / "ref")
+    RDP.save_artifact(ref_dir, rsp, cfg, extra={"compressed": True})
+    tsp, extra = TDP.load_artifact(ref_dir, arch=cfg.name, tile=(16, 16),
+                                   device="cpu")
+    assert extra["family"] == "moe"
+    assert tsp.layers[0]["w_gate"].shape == (cfg.n_experts, cfg.d_model,
+                                             cfg.d_ff)
+    _assert_same_serving(tsp, rsp)
+    if dtype == "bfloat16":
+        return
+    rng = np.random.default_rng(0)
+    trace = [(f"r{i}", rng.integers(0, cfg.vocab, 5 + 3 * i).astype(
+        np.int32), 6) for i in range(4)]
+    bcfg = dict(n_slots=2, block_size=8, n_blocks=32)
+    want = RBatchServer(cfg, rsp, bcfg=RBatchConfig(**bcfg)).run(
+        [RRequest(*t) for t in trace]).outputs
+    tcfg = TR.get_smoke_config(arch, dtype=dtype)
+    got = BatchServer(tcfg, tsp, device="cpu", bcfg=BatchConfig(**bcfg)).run(
+        [Request(*t) for t in trace]).outputs
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], np.asarray(want[rid]))
+    port_dir = str(tmp_path / "port")
+    TDP.save_artifact(port_dir, tsp, tcfg, extra={"compressed": True})
+    back, extra = RDP.load_artifact(port_dir, arch=cfg.name, tile=(16, 16))
+    assert extra == RDP.load_artifact_extra(ref_dir)
+    _assert_same_serving(tsp, back)

@@ -70,3 +70,16 @@ def test_cnn_modules_are_walked():
     for mod in ("core.cim_layer", "models.cnn", "configs.vgg16_cifar",
                 "configs.resnet18_cifar"):
         assert f"repro_torch.{mod}" in names, mod
+
+
+def test_moe_slice_modules_are_walked():
+    """The import walk above reaches the moe slice's configs and the
+    grouped-product kernel's wrapper, and the kernel's source is in
+    ``csrc/``."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    for mod in ("kernels.grouped_matmul", "configs.phi3_5_moe_42b_a6_6b",
+                "configs.grok_1_314b", "configs.granite_8b",
+                "configs.stablelm_12b", "configs.gemma3_27b"):
+        assert f"repro_torch.{mod}" in names, mod
+    assert os.path.exists(os.path.join(PKG_DIR, "csrc", "grouped_matmul.cu"))

@@ -10,6 +10,7 @@ port's ``main`` boots that artifact on the CPU with every runtime and
 engine and must give the same greedy tokens.
 """
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -108,6 +109,30 @@ def test_pack_save_then_boot_gives_the_same_tokens(tmp_path, capsys):
     for rid, toks in first.outputs.items():
         np.testing.assert_array_equal(third.outputs[rid], toks)
     assert second.prefix["hits"] >= 1
+
+
+@pytest.mark.parametrize("tile", [["--tile", "16x16"], []],
+                         ids=["tile", "schedule"])
+def test_moe_reference_cli_artifact_serves_its_tokens(tmp_path, capsys,
+                                                      tile):
+    """The reference CLI packs the phi3.5-moe smoke config (with a tile,
+    and with its schedule search's tiles) into an artifact and prints its
+    first tokens; the port's CLI boots that artifact on both runtimes and
+    serves the same tokens."""
+    argv = ["--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--compressed",
+            *tile, "--artifact", str(tmp_path), "--requests", str(N_REQ),
+            "--new-tokens", str(N_NEW)]
+    RSERVE.main(argv)
+    out = capsys.readouterr().out
+    want = {m.group(1): json.loads(m.group(2))
+            for m in re.finditer(r"^  (\S+): (\[.*\])$", out, re.M)}
+    assert len(want) == 3
+    for runtime in ("loop", "scan"):
+        rep = TSERVE.main(argv + ["--device", "cpu", "--runtime", runtime])
+        assert "no re-packing" in capsys.readouterr().out
+        for rid, toks in want.items():
+            np.testing.assert_array_equal(rep.outputs[rid], toks,
+                                          err_msg=rid)
 
 
 def test_ssm_family_falls_back_to_engine(capsys):
