@@ -58,8 +58,11 @@ needed. Phases (any failure exits non-zero):
               its head's shape; the grouped product at phase 12's shapes
               (GM_SHAPES) within GM_F32_TOL / GM_BF16_TOL of max |plain|,
               with and without row counts, each call repeated bit for bit,
-              and each row bit for bit equal at the row counts of GM_ROWS
-              and beside other rows; the decode-attention kernel at
+              its launch plan equal to plan()'s mirror, and at every shape
+              each row bit for bit equal at the row counts of GM_ROWS (and
+              GM_EDGE_ROWS, a row-block and tile edge, at GM_EDGE_SHAPES),
+              beside other rows and moved to another row index; the
+              decode-attention kernel at
               stablelm-12b's dh 160 and grok-1's 6 heads a kv head;
   3. serve yi-6b - yi-6b at full width in bf16, depth cut to 4 layers,
               random weights from a seed, compressed (uniform 128x128 tile,
@@ -125,7 +128,11 @@ needed. Phases (any failure exits non-zero):
               DA_VIEWS and the prefix-suffix row), and the per-launch
               device time of the block-sparse, fake_quant, ssd_intra and
               decode-attention kernels; the two backward kernels at the
-              train phase's shapes;
+              train phase's shapes; the grouped product at GM_SHAPES and
+              at phi3.5-moe's routed decode (GM_ROUTED), with its
+              per-launch device time, its bound at its route's rate and
+              at the CUDA cores' f32 rate, and the weights' streaming read
+              by one library reduction beside it;
   9. sched  - run after phase 6 (phase 8 times its tiles): the MARS
               schedule search at full width. default_schedule over
               full-depth yi-6b in a process of its own, started before
@@ -195,9 +202,11 @@ needed. Phases (any failure exits non-zero):
               verify pass bit for bit equal to one-token steps (gemma3's
               past its window, through the tied head); for phi3.5-moe the
               kernel path's greedy tokens against the all-plain path's by
-              the margin rule, and a prefill of MOE_REFUSED_LEN padded
-              tokens refused as a ValueError; tokens/s, TTFT and decode-step
-              p50 per run.
+              the margin rule, a device profile of its scan decode (busy
+              share, the grouped product's share of device time, one
+              kernel a wrapper call), and a prefill of MOE_REFUSED_LEN
+              padded tokens refused as a ValueError; tokens/s, TTFT and
+              decode-step p50 per run.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -422,6 +431,10 @@ GEMMA_NEW = 1024 + 64 - GEMMA_PROMPT
 # multiple in (512, 1024)): no token group size divides it, so the moe
 # block refuses it, as the reference's reshape does
 MOE_REFUSED_LEN = 768
+# phase 12's device profile of phi3.5-moe's scan decode: N_SLOTS requests
+# of this many prompt tokens, decoding this many new tokens each
+MOE_PROFILE_PROMPT = 32
+MOE_PROFILE_NEW = 32
 # the grouped product (phases 2 and 8) at phase 12's shapes, (label, G, R,
 # K, N, x type, w type): compressed serving's residual stream is f32 (eq. 5
 # widens it) over bf16 stacks; a one-token row takes 2 capacity rows of
@@ -448,6 +461,12 @@ GM_SHAPES = [
 GM_F32_TOL = 1e-5
 GM_BF16_TOL = 2e-2
 GM_ROWS = (1, 2, 8, 64, VERIFY_ROWS)
+# row counts at the tensor-core route's row-block and row-tile edges
+# (blocks of 48 rows, tiles of 16), held at one expert and one head shape
+GM_EDGE_ROWS = (47, 48, 49, 63, 64, 65)
+GM_EDGE_SHAPES = ("phi3.5-moe w_gate decode", "gemma3 head verify")
+# phase 8's routed decode: N_SLOTS tokens, top-2 of phi3.5-moe's 16 experts
+GM_ROUTED = ("phi3.5-moe w_gate decode", "phi3.5-moe w_down decode")
 
 
 def log(*a) -> None:
@@ -2203,6 +2222,9 @@ def profile_run(torch, label, run, kernels, per_call=None):
                                  if e.key == "aten::copy_")],
            **{f"{name}_ms": sum(dev_us(e) for e in events if sym in e.key)
               / 1e3 for name, sym in kernels.items()},
+           **{f"{name}_share_of_device": sum(
+               dev_us(e) for e in events if sym in e.key) / 1e3 / busy_ms
+              for name, sym in kernels.items() if busy_ms > 0},
            "top": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top]}
     if per_call and events:
         sym, mod = per_call
@@ -2213,6 +2235,32 @@ def profile_run(torch, label, run, kernels, per_call=None):
         out = {"run": label,
                "device_time": "not measured (profiler saw no device time)"}
     log(json.dumps({"profile": out}))
+
+
+def profile_moe_decode(torch, cfg, sp, bcfg):
+    """Phase 12: where phi3.5-moe's scan decode spends the card's time: a
+    run of N_SLOTS requests of MOE_PROFILE_PROMPT tokens decoding
+    MOE_PROFILE_NEW tokens each (the decode steps outnumber the one prefill
+    a request), under torch.profiler: the device's busy share and each
+    kernel's share of device time, the grouped product's first; one
+    grouped-product kernel on the device per wrapper call."""
+    import numpy as np
+    from repro_torch.kernels import grouped_matmul as GM
+    from repro_torch.serve import BatchServer, Request
+    rng = np.random.default_rng(17)
+    reqs = [Request(f"p{i}", rng.integers(0, cfg.vocab, MOE_PROFILE_PROMPT)
+                    .astype(np.int32), MOE_PROFILE_NEW)
+            for i in range(N_SLOTS)]
+    srv = BatchServer(cfg, sp, bcfg=bcfg, device=DEV, engine="scan")
+    srv.run(reqs[:1])  # warm-up
+    torch.cuda.synchronize()
+    profile_run(torch, f"{cfg.name} scan decode", lambda: {
+        "decode_steps": srv.run(reqs).n_decode_steps},
+        {"grouped_matmul_kernel": "grouped_matmul",
+         "bsr_kernel": "bsr_matmul_kernel", "bsr_reduce": "bsr_split_reduce",
+         "bsr_copy": "bsr_x_to_bf16", "fake_quant_kernel": "fake_quant",
+         "decode_attention_kernel": "decode_attention"},
+        ("grouped_matmul", GM))
 
 
 def profile_serve(torch, cfg, sp):
@@ -3398,14 +3446,20 @@ def check_grouped_matmul(torch, GM):
     products at decode, verify and prefill rows, gemma3's tied head), f32
     within GM_F32_TOL of max |plain| and bf16 within GM_BF16_TOL, with and
     without per-group row counts (rows past a count zero); every call
-    repeated bit for bit; then the property the moe slice stands on: each
-    row bit for bit the same at every row count of GM_ROWS, whatever the
-    other rows hold. Returns the largest |kernel - plain|."""
+    repeated bit for bit; the built library's launch plan equal to
+    ``GM.plan``'s mirror; then, at every shape, the property the moe slice
+    stands on: each row bit for bit the same at every row count of GM_ROWS
+    (and GM_EDGE_ROWS at GM_EDGE_SHAPES), whatever the other rows hold and
+    wherever the row lands (two rows moved behind R others, so that they
+    cross row tiles and row blocks). Returns the largest |kernel -
+    plain|."""
     gen = torch.Generator(device=DEV).manual_seed(31)
     GM.reset_launches()
     n, worst = 0, 0.0
     for label, g, r, k, nn, xt, wt in GM_SHAPES:
         xt, wt = getattr(torch, xt), getattr(torch, wt)
+        assert GM.describe(xt, wt, k, nn) == GM.plan(xt, wt, k, nn).fields(), \
+            (label, GM.describe(xt, wt, k, nn), GM.plan(xt, wt, k, nn))
         x = torch.randn((g, r, k), generator=gen, device=DEV).to(xt)
         w = (torch.randn((g, k, nn), generator=gen, device=DEV)
              / k ** 0.5).to(wt)
@@ -3429,23 +3483,24 @@ def check_grouped_matmul(torch, GM):
         del x, w, got, again, want
     rows_checked = 0
     for label, g, _, k, nn, xt, wt in GM_SHAPES:
-        if not label.endswith("decode"):
-            continue
+        rows = GM_ROWS + (GM_EDGE_ROWS if label in GM_EDGE_SHAPES else ())
         xt, wt = getattr(torch, xt), getattr(torch, wt)
-        x = torch.randn((g, max(GM_ROWS), k), generator=gen,
-                        device=DEV).to(xt)
+        x = torch.randn((g, max(rows), k), generator=gen, device=DEV).to(xt)
         w = (torch.randn((g, k, nn), generator=gen, device=DEV)
              / k ** 0.5).to(wt)
         full = GM.grouped_matmul(x, w)
         n += 1
-        for r in GM_ROWS:
+        for r in rows:
             part = GM.grouped_matmul(x[:, :r].contiguous(), w)
-            other = torch.cat([x[:, :1], torch.randn(
-                (g, r, k), generator=gen, device=DEV).to(xt)], 1)
-            n += 2
+            noise = torch.randn((g, r, k), generator=gen, device=DEV).to(xt)
+            other = torch.cat([x[:, :1], noise], 1)
+            moved = torch.cat([noise, x[:, :2]], 1)
+            n += 3
             assert torch.equal(part, full[:, :r]), (label, r)
             assert torch.equal(GM.grouped_matmul(other, w)[:, 0],
-                               full[:, 0]), (label, r)
+                               full[:, 0]), (label, r, "beside")
+            assert torch.equal(GM.grouped_matmul(moved, w)[:, r:],
+                               full[:, :2]), (label, r, "moved")
             rows_checked += 1
         del x, w, full
     torch.cuda.synchronize()
@@ -3453,10 +3508,11 @@ def check_grouped_matmul(torch, GM):
     log(f"[kernel] grouped_matmul: {len(GM_SHAPES)} shapes "
         f"({[s[0] for s in GM_SHAPES]}) within tolerance (f32 "
         f"{GM_F32_TOL}, bf16 {GM_BF16_TOL} of max |plain|), with and "
-        f"without row counts, each call repeated bit for bit; rows bit for "
-        f"bit equal at R = {GM_ROWS} and beside other rows at the "
-        f"{rows_checked // len(GM_ROWS)} decode shapes; {n} launches; max "
-        f"|kernel - plain| {worst:.3e}")
+        f"without row counts, each call repeated bit for bit, launch plans "
+        f"as plan() mirrors them; at every shape each row bit for bit "
+        f"equal at R = {GM_ROWS} (and {GM_EDGE_ROWS} at {GM_EDGE_SHAPES}), "
+        f"beside other rows and moved behind R others ({rows_checked} row "
+        f"counts); {n} launches; max |kernel - plain| {worst:.3e}")
     return worst
 
 
@@ -3674,6 +3730,7 @@ def serve_config(torch, kern, arch, layers, draft, card):
                          "decode_step_p50_s": rep.to_json()["tpot"]["p50"]}
                   for name, rep in reports.items()}}
     if arch.startswith("phi3.5"):
+        profile_moe_decode(torch, cfg, sp, bcfg)
         moe_plain_and_refusal(torch, kern, cfg, sp, trace_fn())
     del sp, sxp, drafted
     torch.cuda.empty_cache()
@@ -3770,37 +3827,75 @@ def moe_configs(torch, kern, card):
 
 
 def times_grouped_matmul(torch, GM):
-    """Phase 8: the grouped product at phase 12's serving shapes: kernel,
-    bound, plain and library times. Bound: x and the weights read once and
-    y written once over the HBM rate, or 2 K N FLOPs a row at the rate of
-    the inputs' type (f32 x: the CUDA cores' f32 rate; bf16: the bf16
-    tensor-core rate); the larger. Library: one ``torch.bmm`` over x and
-    the weights already in x's type (the widening of bf16 weights for f32
-    x left out of its time)."""
+    """Phase 8: the grouped product at phase 12's serving shapes (GM_SHAPES)
+    and at phi3.5-moe's decode with routed counts (GM_ROUTED: N_SLOTS
+    tokens, top-2 of the 16 experts, so at most 8 experts filled): kernel,
+    per-launch device, bound, plain and library times.
+
+    Bound: the bytes the call must move (x's filled rows and the filled
+    groups' weights read once, y written once) over the HBM rate, or its
+    operations at the rate of the route ``GM.plan`` picks: on the tensor
+    cores 2 K N FLOPs a filled row for each bf16 plane of x (three for f32
+    x) at the bf16 tensor-core rate, on the CUDA cores 2 K N at the f32
+    rate; the larger. The same work at the CUDA cores' f32 rate is printed
+    beside it (``bound_ms_f32_cuda_cores``), the rate the kernel's first
+    version ran at. Library: one ``torch.bmm`` over x and the weights
+    already in x's type (the widening of bf16 weights for f32 x left out of
+    its time), every group and row computed. ``stream_ms``: one
+    ``torch.sum`` over all the weights, the library's own streaming read
+    of the same bytes, a yardstick for how close to the byte bound the
+    card's memory lets a kernel come."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(33)
+    pick = torch.Generator().manual_seed(34)
+    cases = [(s, None) for s in GM_SHAPES]
+    for shape in GM_SHAPES:
+        if shape[0] in GM_ROUTED:
+            g = shape[1]
+            chosen = torch.stack([torch.randperm(g, generator=pick)[:2]
+                                  for _ in range(N_SLOTS)])
+            cases.append((shape, torch.bincount(chosen.flatten(),
+                                                minlength=g).int()))
     rows = []
-    for label, g, r, k, nn, x_name, w_name in GM_SHAPES:
+    for (label, g, r, k, nn, x_name, w_name), counts in cases:
         xt, wt = getattr(torch, x_name), getattr(torch, w_name)
         x = torch.randn((g, r, k), generator=gen, device=DEV).to(xt)
         w = (torch.randn((g, k, nn), generator=gen, device=DEV)
              / k ** 0.5).to(wt)
         wx = w.to(xt)
-        nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+        filled = [r] * g if counts is None else counts.tolist()
+        used = sum(1 for c in filled if c > 0)
+        nbytes = (sum(filled) * k * x.element_size()
+                  + used * k * nn * w.element_size()
                   + g * r * nn * x.element_size())
-        rate = BF16_TC_FLOPS_PER_S if xt == torch.bfloat16 else \
-            F32_FLOPS_PER_S
-        b_ms, b_by = bound_ms(nbytes, 2 * g * r * k * nn, rate)
-        row = {"shape": f"grouped_matmul {label}", "entry": "grouped_matmul",
-               "G": g, "R": r, "K": k, "N": nn,
-               "x": x_name, "w": w_name,
-               "kernel_ms": time_ms(torch, lambda: GM.grouped_matmul(x, w),
-                                    flush),
+        macs = sum(filled) * k * nn
+        pl = GM.plan(xt, wt, k, nn)
+        if pl.route == "wgmma":
+            b_ms, b_by = bound_ms(nbytes, 2 * macs * pl.planes,
+                                  BF16_TC_FLOPS_PER_S)
+        else:
+            b_ms, b_by = bound_ms(nbytes, 2 * macs)
+        f32_ms, f32_by = bound_ms(nbytes, 2 * macs)
+        c = None if counts is None else counts.to(DEV)
+        run = lambda: GM.grouped_matmul(x, w, c)
+        row = {"shape": f"grouped_matmul {label}"
+                        + ("" if counts is None else " routed"),
+               "entry": "grouped_matmul",
+               "G": g, "R": r, "K": k, "N": nn, "x": x_name, "w": w_name,
+               "route": pl.route, "planes": pl.planes,
+               "counts": None if counts is None else filled,
+               "kernel_ms": time_ms(torch, run, flush),
+               "device_ms": device_split(torch, run, flush, (
+                   "grouped_matmul",))["grouped_matmul"],
                "bound_ms": b_ms, "bound_by": b_by,
+               "bound_ms_f32_cuda_cores": f32_ms,
+               "bound_by_f32_cuda_cores": f32_by,
                "plain_ms": time_ms(torch, lambda: GM.grouped_matmul_plain(
-                   x, w), flush, iters=10),
+                   x, w, c), flush, iters=10),
                "library_ms": time_ms(torch, lambda: torch.bmm(x, wx),
-                                     flush)}
+                                     flush),
+               "stream_ms": time_ms(torch, lambda: w.sum(
+                   dtype=torch.float32), flush)}
         rows.append(row)
         log(json.dumps(row))
         del x, w, wx
@@ -3857,7 +3952,7 @@ def run_all(torch, search) -> int:
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, (secs, out) in _build.BUILD_LOG.items():
         regs = [ln.strip() for ln in out.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "Used" in ln or "spill" in ln]
         log(f"[build] {name}: nvcc {secs:.1f} s; " + " | ".join(regs))
 
     cfg = registry.get_config("yi-6b", n_layers=N_LAYERS)

@@ -1,5 +1,5 @@
 """Grouped float product whose rows do not depend on the row count: the
-CUDA kernel's wrapper and plain version.
+CUDA kernel's wrapper, launch plan and plain version.
 
     y[g, r, :] = x[g, r, :] @ w[g]      x (G, R, K), w (G, K, N)
 
@@ -9,9 +9,13 @@ these products to XLA as plain jnp (the MoE router and expert einsums of
 kernel of its own for them because the library product picks its sum
 order from the row count on the card, and the paged pass promises that a
 T-token verify gives each position exactly what T one-token steps give
-(``serve/deployed.py``). The kernel sums each row's K terms in the order
-k = 0 .. K-1 whatever R, the tile or the other rows (the source's header
-has the design).
+(``serve/deployed.py``). The kernel's launch plan (:func:`plan`) is chosen
+from the two types, K and N alone, so each row's sum runs in an order that
+R, ``counts``, the other rows and the row tile cannot change: bf16 weights
+on the tensor cores (f32 x as three exact bf16 planes, 32-term steps folded
+into an error-carrying f32 sum), f32 routers on the CUDA cores (fused
+multiply-add chains over fixed K slices, combined by a fixed butterfly).
+The source's header has the design.
 
 Types: (x, w) in (f32, f32), (f32, bf16) or (bf16, bf16), y in x's type,
 f32 accumulation; a bf16 w under f32 x computes ``x @ w.float()`` without
@@ -26,7 +30,9 @@ tensors it launches the kernel (one launch a call) or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,6 +42,113 @@ LAUNCHES = 0
 
 _LIB = None
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# the tensor-core route (the source's constants): two consumer
+# warpgroups of 64 output columns a block, up to 48 rows a block in row
+# tiles of 16, a step of two stages between folds, one block an SM; K a
+# stage and the ring's depth by x's type
+WG_COLS = 128
+WG_ROWS = 48
+WG_ROW_TILE = 16
+WG_FOLD = 2
+WG_THREADS = 288
+WG_STAGE_K = {torch.float32: 64, torch.bfloat16: 128}
+WG_STAGES = {torch.float32: 6, torch.bfloat16: 4}
+# the CUDA-core route: blocks of WARP_THREADS, one block more in a row's
+# cluster for every CLUSTER_K of K, at most MAX_CLUSTER
+WARP_THREADS = 128
+CLUSTER_K = 512
+MAX_CLUSTER = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The launch plan of one (x type, w type, K, N). ``route``: "wgmma"
+    (bf16 w on the tensor cores) or "warp" (f32 x and w on the CUDA cores).
+    ``planes``: bf16 planes of x on the tensor cores (3 for f32 x, 1 for
+    bf16), 0 on the CUDA cores. ``cols``/``rows``: a block's output columns
+    and rows at most; ``row_tile``: rows a wgmma row tile; ``stage_k``: K a
+    pipeline stage on the tensor cores, the K stride of a thread's chain on
+    the CUDA cores; ``step_k``: K between folds into the error-carrying sum
+    (0 on the CUDA cores); ``stages``: the ring's depth; ``threads`` and
+    ``smem`` a block's; ``cluster``: blocks of a thread block cluster (the
+    CUDA-core route splits a row's K over them). The same fields, in this
+    order, are what the built library's ``grouped_matmul_describe`` gives
+    (see :func:`describe`)."""
+    route: str
+    planes: int
+    cols: int
+    rows: int
+    row_tile: int
+    stage_k: int
+    step_k: int
+    stages: int
+    threads: int
+    smem: int
+    cluster: int
+
+    def fields(self) -> Tuple[int, ...]:
+        return (int(self.route == "warp"), self.planes, self.cols, self.rows,
+                self.row_tile, self.stage_k, self.step_k, self.stages,
+                self.threads, self.smem, self.cluster)
+
+
+def _wgmma_smem(x_dtype: torch.dtype) -> int:
+    """The source's Cfg::kSmem: the w and raw x rings, two planes buffers,
+    the barriers and 1024 bytes to align the base."""
+    sk, st = WG_STAGE_K[x_dtype], WG_STAGES[x_dtype]
+    planes = (3 if x_dtype == torch.float32 else 1) * WG_ROWS * sk * 2
+    w = sk * WG_COLS * 2
+    x = WG_ROWS * sk * (4 if x_dtype == torch.float32 else 2)
+    return st * (w + x) + 2 * planes + 2 * st * 8 + 1024
+
+
+@functools.lru_cache(maxsize=256)
+def plan(x_dtype: torch.dtype, w_dtype: torch.dtype, k: int, n: int) -> Plan:
+    """The kernel's launch plan: from the two types (w in the type the
+    product reads it in, see ``_check``), K and N, and nothing else. R and
+    ``counts`` only decide how many blocks run, which row tiles a block
+    issues and which rows it writes, so no row's order of operations can
+    depend on them.
+
+    f32 x over f32 w takes the CUDA-core route: a cluster of blocks a row
+    and a chunk of 8, 16 or 32 columns (from N), one block for every
+    CLUSTER_K of K, at most MAX_CLUSTER; thread t of the cluster's T chains
+    k = t, t + T, ... Every other pair takes the tensor-core route, whose
+    tiles and schedule follow x's type alone."""
+    for dt in (x_dtype, w_dtype):
+        if dt not in _KERNEL_DTYPES:
+            raise TypeError(f"the grouped_matmul kernel takes float32 or "
+                            f"bfloat16, got {dt}")
+    if x_dtype == torch.float32 and w_dtype == torch.float32:
+        cl = min(MAX_CLUSTER, max(1, -(-k // CLUSTER_K)))
+        cols = 8 if n <= 8 else 16 if n <= 16 else 32
+        return Plan("warp", 0, cols, 1, 1, WARP_THREADS * cl, 0, 0,
+                    WARP_THREADS, 0, cl)
+    if w_dtype != torch.bfloat16:
+        raise TypeError(f"a {x_dtype} x takes a bfloat16 w, got {w_dtype}")
+    sk = WG_STAGE_K[x_dtype]
+    return Plan("wgmma", 3 if x_dtype == torch.float32 else 1, WG_COLS,
+                WG_ROWS, WG_ROW_TILE, sk, sk * WG_FOLD, WG_STAGES[x_dtype],
+                WG_THREADS, _wgmma_smem(x_dtype), 1)
+
+
+def launch_plan(x: torch.Tensor, w: torch.Tensor,
+                counts: Optional[torch.Tensor] = None) -> Plan:
+    """:func:`plan` of a call, from its shapes and types alone: ``counts``
+    is taken only to show that it does not enter, and R never does."""
+    w = _check(x, w, counts)
+    return plan(x.dtype, w.dtype, int(x.shape[2]), int(w.shape[2]))
+
+
+def describe(x_dtype: torch.dtype, w_dtype: torch.dtype, k: int,
+             n: int) -> Tuple[int, ...]:
+    """The built library's own plan of these types and shapes, the fields
+    of :class:`Plan` in order (a check that :func:`plan` mirrors it)."""
+    out = (ctypes.c_int * 11)()
+    _lib().grouped_matmul_describe(int(x_dtype == torch.bfloat16),
+                                   int(w_dtype == torch.bfloat16), k, n, out)
+    return tuple(out)
 
 
 def reset_launches() -> None:
@@ -49,8 +162,10 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("grouped_matmul")
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.grouped_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, i64,
-                                              i64, i, i, p]
+                                              i64, i64, i64, i, i, p]
         lib.grouped_matmul_launch.restype = i
+        lib.grouped_matmul_describe.argtypes = [i, i, i, i, p]
+        lib.grouped_matmul_describe.restype = None
         lib.grouped_matmul_error_string.argtypes = [i]
         lib.grouped_matmul_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -94,39 +209,72 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return y.contiguous()
 
 
+def _strides(t: torch.Tensor, inner_pad: int) -> Tuple[int, int]:
+    """(group stride, row stride) in elements of a (G, rows, cols) operand
+    whose last dimension is contiguous; a dimension of size 1 takes the
+    stride it would have if padded rows of ``inner_pad`` followed."""
+    g, rows, _ = t.shape
+    row = t.stride(1) if rows > 1 else inner_pad
+    return (t.stride(0) if g > 1 else rows * row), row
+
+
+def _tma_operand(t: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+    """(t, group stride, row stride) such that the tensor-core route's
+    tensor maps take it: 16-byte aligned, every stride a whole number of
+    16 bytes. Otherwise a zero-padded copy with rows of a multiple of 8
+    elements (for odd shapes only: the serving paths' operands pass)."""
+    vec = 16 // t.element_size()
+    cols = t.shape[2]
+    pad = -(-cols // vec) * vec
+    sg, sr = _strides(t, pad)
+    if t.data_ptr() % 16 or sg % vec or sr % vec:
+        p = -(-cols // 8) * 8
+        c = t.new_zeros((t.shape[0], t.shape[1], p))
+        c[..., :cols] = t
+        t = c
+        sg, sr = _strides(t, p)
+    return t, sg, sr
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[g] = x[g] @ w[g] in x's type (module docstring) on the kernel for
-    CUDA tensors, the plain version for CPU ones. ``x`` may be a view whose
-    rows are contiguous (a group stride of its own); other layouts are
-    copied."""
+    CUDA tensors, the plain version for CPU ones. ``x`` and ``w`` may be
+    views whose rows are contiguous (strides of their own); other layouts
+    are copied, as are operands the tensor maps cannot take."""
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, counts)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     w = _check(x, w, counts)
-    if x.dtype not in _KERNEL_DTYPES or w.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"the grouped_matmul kernel takes float32 or "
-                        f"bfloat16, got {x.dtype} and {w.dtype}")
+    pl = plan(x.dtype, w.dtype, int(x.shape[2]), int(w.shape[2]))
     if any(t is not None and t.device != x.device for t in (w, counts)):
         raise ValueError("all operands must lie on one CUDA device")
     g, r, k = x.shape
     n = w.shape[2]
-    if x.stride(2) != 1 or (r > 1 and x.stride(1) != k):
+    if x.stride(2) != 1:
         x = x.contiguous()
-    if w.stride(2) != 1 or (k > 1 and w.stride(1) != n):
+    if w.stride(2) != 1:
         w = w.contiguous()
     if counts is not None:
         counts = counts.to(torch.int32).contiguous()
     y = torch.empty((g, r, n), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    if k == 0:
+        return y.zero_()
+    if pl.route == "wgmma":
+        x, sxg, sxr = _tma_operand(x)
+        w, swg, swk = _tma_operand(w)
+    else:
+        sxg, sxr = _strides(x, k)
+        swg, swk = _strides(w, n)
     lib = _lib()
     dev = x.get_device()
     err = lib.grouped_matmul_launch(
         x.data_ptr(), w.data_ptr(), y.data_ptr(),
-        None if counts is None else counts.data_ptr(), g, r, k, n,
-        x.stride(0), w.stride(0), int(x.dtype == torch.bfloat16),
+        None if counts is None else counts.data_ptr(), g, r, k, n, sxg, sxr,
+        swg, swk, int(x.dtype == torch.bfloat16),
         int(w.dtype == torch.bfloat16),
         torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:

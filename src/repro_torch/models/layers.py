@@ -9,9 +9,10 @@ fake-quant kernel). The paged decode and verify attention runs on the
 decode-attention kernel (``kernels/decode_attention.py``), which keeps a
 verify position equal to a one-token step; the MoE router and expert
 products and a float head on the paged pass run on the grouped-product
-kernel (``kernels/grouped_matmul.py``) for the same reason; prefill
-attention, norms and RoPE stay plain torch, as the reference leaves them to
-XLA.
+kernel (``kernels/grouped_matmul.py``) for the same reason: its launch plan
+and every sum order in it follow the types, K and N, never the row count;
+prefill attention, norms and RoPE stay plain torch, as the reference leaves
+them to XLA.
 Layouts follow the reference: (B, S, H, dh) activations and caches.
 """
 from __future__ import annotations
@@ -334,11 +335,14 @@ def logits_out(head, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
 
 def logits_rows(head, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
     """:func:`logits_out` with a float head's product on the grouped-product
-    kernel, whose rows do not depend on the row count (the library product
-    picks its sum order from it on the card). The paged decode and verify
-    passes and the batch server's prefill use it, so a verify position's
-    logits equal a one-token step's through a tied or dense head too. A
-    packed head runs the block-sparse kernel, as in :func:`logits_out`."""
+    kernel, whose rows do not depend on the row count: its plan, and each
+    output's order of operations (bf16 planes of x on wgmma, steps of K
+    folded in a fixed order), follow the types, K and N alone, where the
+    library product picks its sum order from the row count on the card.
+    The paged decode and verify passes and the batch server's prefill use
+    it, so a verify position's logits equal a one-token step's through a
+    tied or dense head too. A packed head runs the block-sparse kernel, as
+    in :func:`logits_out`."""
     if not torch.is_tensor(head):
         return logits_out(head, x, cim)
     if cim.mode == "qat":
