@@ -115,7 +115,8 @@ needed. Phases (any failure exits non-zero):
               fallback; the booted artifact once more with --spec
               draft=layerskip (no second packing), --trace-out and
               --metrics-out, tokens equal to the booted scan run's and
-              both files validated; launch counts for every run;
+              both files validated; launch counts for every run; and
+              phase 13's --mesh run (see there);
   7. profile - torch.profiler over a short scan-engine run, a short
               spec-engine run and a short mamba2 generate: the device's
               busy share and its top kernels, and in the yi-6b runs
@@ -132,7 +133,10 @@ needed. Phases (any failure exits non-zero):
               at phi3.5-moe's routed decode (GM_ROUTED), with its
               per-launch device time, its bound at its route's rate and
               at the CUDA cores' f32 rate, and the weights' streaming read
-              by one library reduction beside it;
+              by one library reduction beside it; the sharded call of
+              phase 13 (a launch a macro, the gather, the un-permute) at
+              w_gate and w_down decode and prefill and the head's decode,
+              beside the unsharded kernel on the same weights;
   9. sched  - run after phase 6 (phase 8 times its tiles): the MARS
               schedule search at full width. default_schedule over
               full-depth yi-6b in a process of its own, started before
@@ -207,6 +211,29 @@ needed. Phases (any failure exits non-zero):
               kernel a wrapper call), and a prefill of MOE_REFUSED_LEN
               padded tokens refused as a ValueError; tokens/s, TTFT and
               decode-step p50 per run.
+ 13. macro  - run after phase 12: macro-sharded serving (the reference's
+              bsr_matmul_sharded / bsr_matmul_stacked_sharded) on the one
+              card. Phase 3's 4-layer packing, no re-pack, sharded by
+              serve.deployed.shard over MACROS macros (block columns by
+              surviving-block count; a projection whose columns the
+              macros do not divide replicated, the KV views split by head
+              where the macros divide the KV heads): a verify pass and a
+              prefill bit for bit equal to the unsharded params' on both
+              runtimes; the trace served on loop and scan at every MACROS
+              and on the spec engine (reprune, both tiers sharded) at
+              MACRO_SPEC, tokens equal to phase 3's macro=1 scan tokens,
+              launch counts exact (a sharded projection's product once a
+              macro, a replicated one once, decode attention once a macro
+              where the heads split), the pool scaled only there; the
+              sharded entries against their plain versions at the w_gate,
+              w_down and head shards, un-permuted bit for bit the
+              unsharded kernel, each shard planned as the whole; a
+              profile of the unsharded and the sharded scan (device busy
+              share, the gather and un-permute kernels). Its CLI part runs
+              inside phase 6: the 32-layer artifact booted with --mesh
+              macro=MACRO_CLI on the scan runtime, tokens equal the
+              unsharded booted scan run's, launch counts exact. Phase 8
+              times the sharded call (times_macro).
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -469,6 +496,20 @@ GM_EDGE_SHAPES = ("phi3.5-moe w_gate decode", "gemma3 head verify")
 GM_ROUTED = ("phi3.5-moe w_gate decode", "phi3.5-moe w_down decode")
 
 
+# phase 13 (macro): phase 3's packing over a macro mesh on the one card, at
+# MACROS macros on the loop and scan runtimes and at MACRO_SPEC on the spec
+# engine (reprune, both tiers sharded); the cli phase boots its 32-layer
+# artifact with --mesh macro=MACRO_CLI. A sharded call's device time is
+# split into the kernel's launches, the gather (torch.cat) and the
+# un-permute (index_select) by these symbols
+MACROS = (2, 4)
+MACRO_SPEC = 2
+MACRO_CLI = 4
+MACRO_SYMS = ("bsr_x_to_bf16", "bsr_matmul_kernel", "bsr_split_reduce",
+              "CatArrayBatchedCopy", "indexSelect")
+SHARDED_ENTRIES = ("bsr_matmul_sharded", "bsr_matmul_stacked_sharded")
+
+
 def log(*a) -> None:
     print(*a, flush=True)
 
@@ -479,8 +520,12 @@ def reset_launches(kern) -> None:
 
 
 def launch_counts(kern) -> dict:
+    """The launches since the last reset, by entry; the sharded entries
+    (phase 13) only where a run launched them."""
     K, FQ, SI, QM, DA, GM = kern
-    return dict(K.LAUNCHES_BY_ENTRY, fake_quant=FQ.LAUNCHES,
+    by_entry = {k: v for k, v in K.LAUNCHES_BY_ENTRY.items()
+                if v or k not in SHARDED_ENTRIES}
+    return dict(by_entry, fake_quant=FQ.LAUNCHES,
                 ssd_intra_chunk=SI.LAUNCHES, quant_matmul=QM.LAUNCHES,
                 decode_attention=DA.LAUNCHES, grouped_matmul=GM.LAUNCHES)
 
@@ -551,6 +596,46 @@ def spec_launches(cfg, rep, masks=None) -> dict:
             "grouped_matmul": 0}
 
 
+def sharded_names(cfg, tile, n):
+    """(the per-layer projections, whether the head) a mesh of ``n``
+    macros shards at ``tile``: those whose block columns n divides; the
+    rest stay replicated."""
+    outs = {"wq": cfg.n_heads * cfg.dh, "wk": cfg.n_kv_heads * cfg.dh,
+            "wv": cfg.n_kv_heads * cfg.dh, "wo": cfg.d_model,
+            "w_gate": cfg.d_ff, "w_up": cfg.d_ff, "w_down": cfg.d_model}
+    return ({k for k, d in outs.items() if (d // tile[1]) % n == 0},
+            (cfg.vocab // tile[1]) % n == 0)
+
+
+def macro_launches(cfg, engine, forwards, attn, n) -> dict:
+    """The launches of ``forwards`` full forwards of the compressed dense
+    model over ``n`` macros (``engine`` "loop", or "stacked" for the scan
+    runtime and both tiers of the reprune spec engine): a sharded
+    projection's block-sparse product once a macro on the sharded entry, a
+    replicated one once on its own entry, eq. 5 once a projection; and the
+    decode-attention kernel's unsharded count ``attn`` times n where n
+    divides the KV heads (one launch a macro), else ``attn``."""
+    names, head = sharded_names(cfg, TILE, n)
+    L, s, h = cfg.n_layers, len(names), int(head)
+    if engine == "loop":
+        want = {"bsr_matmul": ((7 - s) * L + 1 - h) * forwards,
+                "bsr_matmul_sharded": n * (s * L + h) * forwards}
+    else:
+        want = {"bsr_matmul": (1 - h) * forwards,
+                "bsr_matmul_stacked": (7 - s) * L * forwards,
+                "bsr_matmul_sharded": n * h * forwards,
+                "bsr_matmul_stacked_sharded": n * s * L * forwards}
+    heads = cfg.n_kv_heads % n == 0
+    want.update(fake_quant=(7 * L + 1) * forwards,
+                decode_attention=attn * (n if heads else 1))
+    return want
+
+
+def same_counts(got, want) -> bool:
+    """Launch counts equal, an entry missing from one side counting 0."""
+    return all(got.get(k, 0) == want.get(k, 0) for k in set(got) | set(want))
+
+
 @contextlib.contextmanager
 def plain_kernels(kern, attention=False, grouped=False):
     """The block-sparse, fake_quant and ssd_intra wrappers swapped for their
@@ -560,7 +645,8 @@ def plain_kernels(kern, attention=False, grouped=False):
     K, FQ, SI, _, DA, GM = kern
     saved = (K._run, FQ.fake_quant, SI.ssd_intra_chunk, DA.decode_attention,
              GM.grouped_matmul)
-    K._run = lambda entry, x, *ops: K.bsr_matmul_stacked_plain(x, *ops)
+    K._run = lambda entry, x, *ops, plan_go=None: \
+        K.bsr_matmul_stacked_plain(x, *ops)
     FQ.fake_quant = FQ.fake_quant_plain
     SI.ssd_intra_chunk = SI.ssd_intra_chunk_plain
     if grouped:
@@ -1805,6 +1891,33 @@ def cli(torch, kern, card):
             f"({7 * cfg.n_layers + 1} projections: int8 blocks, row_idx, "
             f"nnz, scales; embed and norms); scan tokens equal loop tokens "
             f"on all {batch['loop'].n_requests} requests")
+        # phase 13's cli part: the artifact booted over a macro mesh
+        t0 = time.perf_counter()
+        label = f"yi-6b batch scan macro={MACRO_CLI}"
+        rep = drive(label, yi + CLI_BATCH + ["--runtime", "scan", "--mesh",
+                                             f"macro={MACRO_CLI}"])
+        rec.pop("booted")
+        got = counts[f"cli {label}"]
+        want = macro_launches(
+            cfg, "stacked", sum(r.n_requests + r.n_decode_steps
+                                for r in rec["reports"]),
+            cfg.n_layers * sum(paged_passes(r) for r in rec["reports"]),
+            MACRO_CLI)
+        assert same_counts(got, want), (got, want)
+        assert rec["deploy_weight"] == 0
+        assert all(r.kv_stats["n_devices"] == MACRO_CLI
+                   for r in rec["reports"])
+        for rid, toks in batch["scan"].outputs.items():
+            assert (rep.outputs[rid] == toks).all(), \
+                f"{rid}: --mesh macro={MACRO_CLI} tokens != the scan run's"
+        j = rep.to_json()
+        log(f"[macro] cli {label}: boot_s {rec['secs']['boot']:.2f} "
+            f"deploy_weight 0; tokens equal the unsharded booted scan run's "
+            f"on all {rep.n_requests} requests; tokens_per_s "
+            f"{rep.tokens_per_s:.2f} (unsharded "
+            f"{batch['scan'].tokens_per_s:.2f}) "
+            f"decode_step_p50_s {j['tpot']['p50']}; launches {got}; "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
         from repro_torch.obs import (validate_chrome_trace_file,
                                      validate_metrics_snapshot)
         trace_out = os.path.join(tmp, "trace.json")
@@ -3301,7 +3414,7 @@ def cnn_deploy(torch, kern, params, card):
     ys = {key: ops.bsr_matmul(x, packed) for key, x in xs.items()}
     torch.cuda.synchronize()
     got = dict(K.LAUNCHES_BY_ENTRY)
-    assert got == {"bsr_matmul": len(xs), "bsr_matmul_stacked": 0}, got
+    assert same_counts(got, {"bsr_matmul": len(xs)}), got
     err = 0.0
     for key, x in xs.items():
         want = K.bsr_matmul_stacked_plain(
@@ -3826,6 +3939,276 @@ def moe_configs(torch, kern, card):
     return counts, summaries
 
 
+def macro_forwards(torch, cfg, pairs, n):
+    """Phase 13: a verify pass of SPEC_K + 1 tokens over N_SLOTS rows and
+    random bf16 views, and a PROMPT_ROWS-token prefill, through the
+    unsharded and the sharded params of each runtime (``pairs``: (label,
+    unsharded, sharded)): logits and K/V equal bit for bit. The views go
+    split by KV head where n divides the heads, as the server gathers
+    them."""
+    from repro_torch.launch.shardings import KVShards
+    from repro_torch.serve import deployed as DP
+    gen = torch.Generator(device=DEV).manual_seed(n)
+    kvh = cfg.n_kv_heads
+    vk, vv = (torch.randn((cfg.n_layers, N_SLOTS, 256, kvh, cfg.dh),
+                          generator=gen, device=DEV).to(cfg.param_dtype)
+              for _ in range(2))
+    pos = torch.tensor([40, 97, 150, 201], dtype=torch.int32, device=DEV)
+    toks = torch.randint(0, cfg.vocab, (N_SLOTS, SPEC_K + 1), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab, (1, PROMPT_ROWS), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    w = kvh // n
+    split = ((lambda a: KVShards(a[..., d * w:(d + 1) * w, :].contiguous()
+                                 for d in range(n)))
+             if kvh % n == 0 else (lambda a: a))
+    for label, plain, sharded in pairs:
+        want = DP.verify_step(plain, vk, vv, pos, toks, cfg)
+        got = DP.verify_step(sharded, split(vk), split(vv), pos, toks, cfg)
+        want += DP.prefill_last(plain, prompt, PROMPT_ROWS, cfg)
+        got += DP.prefill_last(sharded, prompt, PROMPT_ROWS, cfg)
+        for g, e in zip(got, want):
+            assert torch.equal(g, e), (label, n)
+    log(f"[macro] {n} macros: verify pass ({N_SLOTS} rows x {SPEC_K + 1} "
+        f"tokens over a 256-position view) and a {PROMPT_ROWS}-token "
+        f"prefill, loop and scan: logits and K/V bit for bit equal to the "
+        "unsharded params' on the card")
+
+
+def macro_kernels(torch, K, Q, sp, sxp, sps, sxs, n):
+    """Phase 13: the sharded entries against their plain versions on the
+    card at the w_gate, w_down and head shards (decode and prefill rows,
+    f32 eq. 5 x): within 1e-5 of max |plain|, un-permuted bit for bit equal
+    to the unsharded kernel, each macro's launch plan the unsharded call's.
+    Returns the largest |kernel - plain| per entry."""
+    from repro_torch.core import deploy as D
+    layer0 = sxp.layer_ids[0:1]
+    err = {e: 0.0 for e in SHARDED_ENTRIES}
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    cases = [(name, sxs.packed[name], sxp.packed[name])
+             for name in ("w_gate", "w_down")]
+    cases.append(("head", sps.head, sp.head))
+    for name, sh, base in cases:
+        if sh.mesh is None:
+            continue
+        for m in (N_SLOTS, PROMPT_ROWS):
+            x = Q.quantize_activation(torch.randn(
+                (m, sh.d_in), generator=gen, device=DEV), 8, signed=True)
+            if name == "head":
+                p, whole = sh.packed[0], [base.packed[0][k] for k in
+                                          ("blocks", "scales", "row_idx",
+                                           "nnz")]
+                shards, inv, entry = p["shards"], p["col_inv"], \
+                    "bsr_matmul_sharded"
+                y = K.bsr_matmul_sharded(x, shards)
+                plain = K.bsr_matmul_sharded_plain(x, shards)
+                want = K.bsr_matmul(x, *whole)
+                blocks = [s[0][None] for s in shards]
+                whole_blocks = whole[0][None]
+            else:
+                shards, inv, entry = sh.shards, sh.col_inv[0], \
+                    "bsr_matmul_stacked_sharded"
+                y = K.bsr_matmul_stacked_sharded(x, shards, layer0)
+                plain = K.bsr_matmul_stacked_sharded_plain(x, shards, 0)
+                want = K.bsr_matmul_stacked(x, base.blocks, base.scales,
+                                            base.row_idx, base.nnz, layer0)
+                blocks = [s[0] for s in shards]
+                whole_blocks = base.blocks
+            e = float((y - plain).abs().max())
+            assert e <= 1e-5 * max(1.0, float(plain.abs().max())), (name, e)
+            err[entry] = max(err[entry], e)
+            assert torch.equal(D._unpermute(y, inv), want), (name, m)
+            go = int(whole_blocks.shape[1])
+            plans = {K.launch_plan(x, b, go) for b in blocks}
+            assert plans == {K.launch_plan(x, whole_blocks)}, (name, plans)
+            log(f"[macro] {n} macros: {name} {m} rows on {entry}: "
+                f"{len(shards)} shards of {blocks[0].shape[1]} of {go} "
+                f"block columns, max |kernel - plain| {e:.3e}, un-permuted "
+                f"bit for bit the unsharded kernel's, plan {plans.pop()}")
+    return err
+
+
+def macro(torch, kern, cfg, sp, sxp, draft, scan, card):
+    """Phase 13 (macro): phase 3's 4-layer full-width packing (no re-pack)
+    sharded over MACROS macros on the one card (``serve.deployed.shard``,
+    LPT by surviving blocks): forwards bit for bit (``macro_forwards``), the
+    trace served on the loop and scan runtimes at every MACROS and on the
+    spec engine (reprune, both tiers sharded) at MACRO_SPEC, each run
+    driven with the launch counts at 0 and read after: tokens equal phase
+    3's macro=1 scan tokens, launch counts exact (``macro_launches``), the
+    pool scaled only where the KV heads split; the sharded entries against
+    their plain versions (``macro_kernels``); a torch.profiler run of the
+    unsharded and the MACROS[-1] scan (device busy share; the gather and
+    un-permute kernels). Returns (counts, max |kernel - plain| per sharded
+    entry, {n: (sharded ServingParams, its stack)} for phase 8)."""
+    from repro_torch.core import deploy as D
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.launch.shardings import macro_mesh
+    from repro_torch.serve import BatchConfig, BatchServer, Request
+    from repro_torch.serve import deployed as DP
+    from repro_torch.serve import spec as SPM
+    from repro_torch.serve import stacked as ST
+    K = kern[0]
+    t_phase = time.perf_counter()
+    bcfg = BatchConfig(n_slots=N_SLOTS, block_size=16, n_blocks=96)
+    counts, sharded = {}, {}
+    err = {e: 0.0 for e in SHARDED_ENTRIES}
+    for n in MACROS:
+        mesh = macro_mesh(n, DEV)
+        t0 = time.perf_counter()
+        sps = DP.shard(sp, mesh)
+        sxs = ST.stack(sps)
+        torch.cuda.synchronize()
+        names, head = sharded_names(cfg, TILE, n)
+        got = {k for k, v in sps.layers[0].items()
+               if isinstance(v, D.DeployedWeight) and v.mesh is not None}
+        assert got == names and (sps.head.mesh is not None) == head, got
+        heads = cfg.n_kv_heads % n == 0
+        log(f"[macro] {n} macros on one card: shard + stack "
+            f"{time.perf_counter() - t0:.2f} s; {sorted(names)} and "
+            f"{'the' if head else 'not the'} head column-sharded (rest "
+            f"replicated); the {cfg.n_kv_heads} KV heads "
+            f"{'split' if heads else 'replicated'} ({card})")
+        macro_forwards(torch, cfg, [("loop", sp, sps), ("scan", sxp, sxs)],
+                       n)
+        runs = [("loop", {}), ("scan", {})]
+        if n == MACRO_SPEC:
+            runs.append(("spec", dict(draft=DP.shard(draft, mesh),
+                                      spec=SPM.SpecConfig(
+                                          k=SPEC_K, draft_sparsity=(
+                                              SPEC_DRAFT_SPARSITY)))))
+        for engine, kw in runs:
+            srv = BatchServer(cfg, sps, bcfg=bcfg, engine=engine, device=DEV,
+                              mesh=mesh, **kw)
+            srv.run(make_trace(Request, cfg.vocab, seed=9)[:1])  # warm-up
+            torch.cuda.synchronize()
+            reset_launches(kern)
+            t0 = time.perf_counter()
+            rep = srv.run(make_trace(Request, cfg.vocab))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts[f"macro {engine} {n}"] = got = launch_counts(kern)
+            if engine == "spec":  # as spec_launches counts a reprune run
+                ks = rep.spec["round_k"]
+                forwards = 2 * rep.n_requests + sum(k + 2 for k in ks)
+                attn = cfg.n_layers * (2 * rep.prefix["hits"]
+                                       + sum(k + 2 for k in ks))
+            else:
+                forwards = rep.n_requests + rep.n_decode_steps
+                attn = cfg.n_layers * paged_passes(rep)
+            want = macro_launches(cfg, "loop" if engine == "loop"
+                                  else "stacked", forwards, attn, n)
+            assert same_counts(got, want), (engine, n, got, want)
+            kv = rep.kv_stats
+            assert (kv["n_devices"], kv["kv_heads_sharded"],
+                    kv["n_blocks"]) == (n, heads, 96 * (n if heads else 1))
+            for rid, toks in scan.outputs.items():
+                assert (rep.outputs[rid] == toks).all(), \
+                    f"macro {n} {engine} {rid}: tokens != phase 3's scan"
+            j = rep.to_json()
+            log(f"[macro] {n} macros {engine}: tokens equal phase 3's "
+                f"macro=1 scan tokens on all {rep.n_requests} requests; "
+                f"{secs:.2f} s, tokens_per_s {rep.tokens_per_s:.2f} "
+                f"ttft_p50_s {j['ttft']['p50']} decode_step_p50_s "
+                f"{j['tpot']['p50']} prefix_hits {rep.prefix['hits']} "
+                f"kv {kv['n_blocks']} blocks; launches {got} over "
+                f"{forwards} forwards ({card})")
+        for e, v in macro_kernels(torch, K, Q, sp, sxp, sps, sxs,
+                                  n).items():
+            err[e] = max(err[e], v)
+        sharded[n] = (sps, sxs)
+    n = MACROS[-1]
+    for label, params, mesh in (("unsharded", sp, None),
+                                (f"{n} macros", sharded[n][0],
+                                 macro_mesh(n, DEV))):
+        srv = BatchServer(cfg, params, engine="scan", device=DEV, mesh=mesh,
+                          bcfg=bcfg)
+        reqs = make_trace(Request, cfg.vocab, seed=5)[:N_SLOTS]
+        srv.run(reqs[:1])  # warm-up
+        torch.cuda.synchronize()
+        profile_run(torch, f"yi-6b scan serve, {label}", lambda: {
+            "decode_steps": srv.run(reqs).n_decode_steps},
+            {"bsr_kernel": "bsr_matmul_kernel",
+             "decode_attention_kernel": "decode_attention",
+             "cat": "CatArrayBatchedCopy", "index_select": "indexSelect"},
+            ("decode_attention_kernel", DA))
+    log(f"[macro] phase {time.perf_counter() - t_phase:.1f} s in-process, "
+        f"the cli's --mesh macro={MACRO_CLI} run in phase 6 beside it "
+        f"({card})")
+    return counts, err, sharded
+
+
+def times_macro(torch, K, Q, sp, sxp, sharded):
+    """Phase 8's B3 rows: the sharded call (a launch a macro, the gather,
+    the un-permute; ``deploy.stacked_matmul``/``deployed_matmul`` with x
+    already eq. 5 data) at w_gate and w_down decode and prefill and the
+    head's decode, at each mesh of phase 13 that shards them, beside the
+    unsharded kernel on the same weights in the same run; the bound is the
+    unsharded product's (the same bytes); the plain version is the plain
+    product per shard, gathered and un-permuted; the library call is
+    ``torch.matmul`` over the dequantized dense weight. L2 flushed as in
+    ``times``."""
+    from repro_torch.core import deploy as D
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
+    layer0 = sxp.layer_ids[0:1]
+    rows = []
+    for n, (sps, sxs) in sharded.items():
+        for name in ("w_gate", "w_down", "head"):
+            if name == "head":
+                dw = sps.head
+                p = dw.packed[0]
+                whole = [sp.head.packed[0][k] for k in
+                         ("blocks", "scales", "row_idx", "nnz")]
+                ops = [a[None] for a in whole]
+                run = lambda x, dw=dw: D.deployed_matmul(x, dw)
+                alone = lambda x, whole=whole: K.bsr_matmul(x, *whole)
+                plain = lambda x, p=p: D._unpermute(
+                    K.bsr_matmul_sharded_plain(x, p["shards"]),
+                    p["col_inv"])
+                entry, ms = "bsr_matmul_sharded", (N_SLOTS,)
+            else:
+                dw, base = sxs.packed[name], sxp.packed[name]
+                ops = [base.blocks, base.scales, base.row_idx, base.nnz]
+                run = lambda x, dw=dw: D.stacked_matmul(x, dw, layer0)
+                alone = lambda x, ops=ops: K.bsr_matmul_stacked(
+                    x, *ops, layer0)
+                plain = lambda x, dw=dw: D._unpermute(
+                    K.bsr_matmul_stacked_sharded_plain(x, dw.shards, 0),
+                    dw.col_inv[0])
+                entry, ms = "bsr_matmul_stacked_sharded", (N_SLOTS,
+                                                           PROMPT_ROWS)
+            if dw.mesh is None:
+                continue
+            _, go, nmax, bk, bn = ops[0].shape
+            nnz = int(ops[3][0].clamp(max=nmax).sum())
+            w_dense = K.dense_weight(*ops, 0, dw.d_in)
+            for m in ms:
+                x = Q.quantize_activation(torch.randn((m, dw.d_in),
+                                                      device=DEV), 8,
+                                          signed=True)
+                b_ms, b_by = bound(m, dw.d_in, go * bn, nnz, bk, bn, go)
+                rows_of = "decode" if m == N_SLOTS else "prefill"
+                row = {"shape": f"{name} {rows_of} macro {n}",
+                       "entry": entry, "M": m, "K": dw.d_in, "N": go * bn,
+                       "tile": [bk, bn], "macros": n, "nnz_blocks": nnz,
+                       "kernel_ms": time_ms(torch, lambda: run(x), flush),
+                       "unsharded_ms": time_ms(torch, lambda: alone(x),
+                                               flush),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "plain_ms": time_ms(torch, lambda: plain(x), flush),
+                       "library_ms": time_ms(
+                           torch, lambda: torch.matmul(x, w_dense), flush),
+                       "device_ms": device_split(
+                           torch, lambda: run(x), flush, MACRO_SYMS),
+                       "unsharded_device_ms": device_split(
+                           torch, lambda: alone(x), flush, MACRO_SYMS)}
+                rows.append(row)
+                log(json.dumps(row))
+            del w_dense
+    return rows
+
+
 def times_grouped_matmul(torch, GM):
     """Phase 8: the grouped product at phase 12's serving shapes (GM_SHAPES)
     and at phi3.5-moe's decode with routed counts (GM_ROUTED: N_SLOTS
@@ -3920,7 +4303,7 @@ def main() -> int:
 
 
 def run_all(torch, search) -> int:
-    """Phases 1-12 (see the module docstring); ``search`` is the full-depth
+    """Phases 1-13 (see the module docstring); ``search`` is the full-depth
     schedule search's process, read by phase 9."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import quant as Q
@@ -4017,6 +4400,10 @@ def run_all(torch, search) -> int:
     counts.update(cnn_counts)
     moe_counts, _ = moe_configs(torch, kern, card)
     counts.update(moe_counts)
+    macro_counts, macro_err, sharded = macro(torch, kern, cfg, sp, sxp,
+                                             draft, scan, card)
+    counts.update(macro_counts)
+    max_err.update(macro_err)
     max_err["bsr_matmul"] = max(max_err["bsr_matmul"], deploy_err)
 
     profile_serve(torch, cfg, sp)
@@ -4031,7 +4418,9 @@ def run_all(torch, search) -> int:
             + times_decode_attention(torch, DA, cfg)
             + times_train(torch, kern, registry.get_config("yi-6b"), mcfg)
             + cnn_rows + times_cnn(torch, kern)
-            + times_grouped_matmul(torch, GM))
+            + times_grouped_matmul(torch, GM)
+            + times_macro(torch, K, Q, sp, sxp, sharded))
+    del sharded
     pick = {"bsr_matmul_stacked": "w_gate decode", "bsr_matmul": "head decode",
             "fake_quant": "fake_quant act prefill",
             "ssd_intra_chunk": "ssd_intra serve",
@@ -4039,7 +4428,9 @@ def run_all(torch, search) -> int:
             "decode_attention": f"decode_attention decode {DA_VIEWS[0]}",
             "fake_quant_bwd": "fake_quant_bwd act train",
             "ssd_intra_chunk_bwd": "ssd_intra_bwd train",
-            "grouped_matmul": "grouped_matmul phi3.5-moe w_gate decode"}
+            "grouped_matmul": "grouped_matmul phi3.5-moe w_gate decode",
+            "bsr_matmul_stacked_sharded": f"w_gate decode macro {MACROS[0]}",
+            "bsr_matmul_sharded": f"head decode macro {MACROS[-1]}"}
     source = {"bsr_matmul_stacked": "bsr_matmul.cu",
               "bsr_matmul": "bsr_matmul.cu", "fake_quant": "fake_quant.cu",
               "ssd_intra_chunk": "ssd_intra.cu",
@@ -4047,7 +4438,9 @@ def run_all(torch, search) -> int:
               "decode_attention": "decode_attention.cu",
               "fake_quant_bwd": "fake_quant.cu",
               "ssd_intra_chunk_bwd": "ssd_intra_bwd.cu",
-              "grouped_matmul": "grouped_matmul.cu"}
+              "grouped_matmul": "grouped_matmul.cu",
+              "bsr_matmul_stacked_sharded": "bsr_matmul.cu",
+              "bsr_matmul_sharded": "bsr_matmul.cu"}
     replaces = {"bsr_matmul": "src/repro/kernels/cim_bsr_matmul.py:83",
                 "bsr_matmul_stacked": "src/repro/kernels/cim_bsr_matmul.py:138",
                 "fake_quant": "src/repro/kernels/fake_quant.py:28",
@@ -4062,7 +4455,12 @@ def run_all(torch, search) -> int:
                 "ssd_intra_chunk_bwd": "src/repro/models/ssm.py:29",
                 # no Pallas kernel: the reference's XLA products of
                 # moe_block (router :352, experts :395-398) and a float head
-                "grouped_matmul": "src/repro/models/layers.py:395"}
+                "grouped_matmul": "src/repro/models/layers.py:395",
+                # shard_map wrappers: a launch of the kernel above a macro
+                "bsr_matmul_stacked_sharded":
+                    "src/repro/kernels/cim_bsr_matmul.py:181",
+                "bsr_matmul_sharded":
+                    "src/repro/kernels/cim_bsr_matmul.py:206"}
     kernels = []
     for entry in pick:
         row = next(r for r in rows if r["shape"] == pick[entry])
@@ -4076,7 +4474,7 @@ def run_all(torch, search) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
         if entry in ("bsr_matmul_stacked", "bsr_matmul",
-                     "decode_attention", "grouped_matmul"):
+                     "decode_attention", "grouped_matmul") + SHARDED_ENTRIES:
             # the entry's timed row that fares worst against its library
             # call, so that a losing row cannot hide behind the picked one
             own = [r for r in rows if r.get("entry") == entry]

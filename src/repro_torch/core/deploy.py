@@ -9,31 +9,67 @@ projection into one :class:`StackedWeight` whose slot axis is padded to the
 largest ``nnz_max`` with zero blocks AND zero scales, while the per-layer
 ``nnz``/``row_idx`` stay exact. ``stacked_matmul`` serves any layer of the
 stack through the same layer-indexed kernel, with the layer id on the card.
+
+Macro sharding (:func:`shard_weight`): a projection's block columns are
+laid over the macros of a serving mesh (``launch.shardings.MacroMesh``),
+balanced by surviving-block count (``sched.allocate.device_assignment``,
+the scheduler's LPT policy). Only placement changes: each macro runs the
+same kernel on its own columns, the outputs are gathered and un-permuted
+by ``col_inv``, and the result is the unsharded one bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.cim_bsr_matmul import MACRO_AXIS
 from . import quant as Q
 from . import sparsity as S
 from .cim_layer import CIMConfig
+
+if TYPE_CHECKING:
+    from ..launch.shardings import MacroMesh
+
+_ARRAYS = ("blocks", "scales", "row_idx", "nnz")
+
+
+def _macro_shards(arrays: Sequence[torch.Tensor], mesh: "MacroMesh",
+                  dim: int) -> tuple:
+    """Macro d's (blocks, scales, row_idx, nnz): its run of go / n block
+    columns along ``dim`` of the macro-order ``arrays``, contiguous on its
+    device (a view where that is a view already)."""
+    go = int(arrays[0].shape[dim])
+    if go % mesh.size:
+        raise ValueError(f"{go} block columns do not split evenly over "
+                         f"{mesh.size} macros")
+    g = go // mesh.size
+    return tuple(tuple(a.narrow(dim, d * g, g).to(dev).contiguous()
+                       for a in arrays)
+                 for d, dev in enumerate(mesh.devices))
 
 
 @dataclasses.dataclass
 class DeployedWeight:
     """One projection packed for the kernel: one packed dict per layer of a
     stacked master weight (``blocks``, ``scales``, ``row_idx``, ``nnz``
-    tensors and a ``density`` float)."""
+    tensors and a ``density`` float).
+
+    ``mesh`` is None for single-device serving. After :func:`shard_weight`
+    it is the serving mesh: each packed dict's block columns are then in
+    macro order (equal-cardinality shards, on the mesh's first device), and
+    the dict also holds ``col_inv``, the index that restores the logical
+    column order after the sharded kernel's gather, and ``shards``, macro
+    d's (blocks, scales, row_idx, nnz) on its device."""
 
     packed: List[dict]
     d_in: int
     d_out: int
     bits: int
+    mesh: Optional["MacroMesh"] = None
 
     @property
     def density(self) -> float:
@@ -48,7 +84,13 @@ class DeployedWeight:
 
 @dataclasses.dataclass
 class StackedWeight:
-    """L layers of one projection in one uniform packing envelope."""
+    """L layers of one projection in one uniform packing envelope.
+
+    Stacked from macro-sharded layers, it carries their ``mesh`` and
+    ``col_inv`` ((L, go): each layer keeps its own column placement), and
+    ``shards``: macro d's (L, go / n, ...) arrays, contiguous on its device,
+    which the layer-indexed kernel needs (a slice of the go axis of the
+    macro-order stack is not)."""
 
     blocks: torch.Tensor   # (L, go, nnz_max, bk, bn) int8
     scales: torch.Tensor   # (L, go, nnz_max) f32 (0 in padding slots)
@@ -57,6 +99,14 @@ class StackedWeight:
     d_in: int
     d_out: int
     bits: int
+    col_inv: Optional[torch.Tensor] = None  # (L, go) int32 when sharded
+    mesh: Optional["MacroMesh"] = None
+    shards: tuple = dataclasses.field(default=(), init=False, repr=False)
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            self.shards = _macro_shards(
+                [getattr(self, k) for k in _ARRAYS], self.mesh, 1)
 
     @property
     def n_layers(self) -> int:
@@ -78,7 +128,11 @@ class StackedWeight:
         gi = self.d_in // self.tile[0]
         p["density"] = float(p["nnz"].sum().item()) / max(
             gi * int(self.nnz.shape[1]), 1)
-        return DeployedWeight([p], self.d_in, self.d_out, self.bits)
+        if self.mesh is not None:
+            p["col_inv"] = self.col_inv[i].clone()
+            p["shards"] = tuple(tuple(a[i] for a in s) for s in self.shards)
+        return DeployedWeight([p], self.d_in, self.d_out, self.bits,
+                              mesh=self.mesh)
 
 
 class StackedLayerView:
@@ -97,7 +151,9 @@ class StackedLayerView:
 def stack_deployed(dws: Sequence[DeployedWeight]) -> StackedWeight:
     """Stack per-layer packings of ONE projection into a uniform envelope.
     Every entry must share (d_in, d_out, bits, go, bk, bn); ``nnz_max`` is
-    padded up to the largest with zero blocks and zero scales."""
+    padded up to the largest with zero blocks and zero scales. Placement is
+    kept: macro-sharded inputs, all on one mesh, stack into a sharded
+    envelope with their per-layer ``col_inv``."""
     if isinstance(dws, DeployedWeight):
         dws = [dws]
     dws = list(dws)
@@ -110,6 +166,8 @@ def stack_deployed(dws: Sequence[DeployedWeight]) -> StackedWeight:
                 "stack_deployed: mixed projection geometry "
                 f"{(dw.d_in, dw.d_out, dw.bits)} vs "
                 f"{(ref.d_in, ref.d_out, ref.bits)}")
+        if dw.mesh != ref.mesh:
+            raise ValueError("stack_deployed: mixed meshes across layers")
     packed = [p for dw in dws for p in dw.packed]
     shapes = {tuple(p["blocks"].shape[i] for i in (0, 2, 3)) for p in packed}
     if len(shapes) != 1:
@@ -130,8 +188,10 @@ def stack_deployed(dws: Sequence[DeployedWeight]) -> StackedWeight:
         scales[i, :, :w] = p["scales"]
         row_idx[i, :, :w] = p["row_idx"]
     nnz = torch.stack([p["nnz"] for p in packed])
+    col_inv = (torch.stack([p["col_inv"] for p in packed])
+               if ref.mesh is not None else None)
     return StackedWeight(blocks, scales, row_idx, nnz, ref.d_in, ref.d_out,
-                         ref.bits)
+                         ref.bits, col_inv=col_inv, mesh=ref.mesh)
 
 
 def fit_tile(d_in: int, d_out: int, bk: int, bn: int) -> tuple:
@@ -178,6 +238,86 @@ def deploy_weight(w: torch.Tensor, cim: CIMConfig, bk: int = 128,
                           int(stacked.shape[-1]), bits)
 
 
+def shardable_columns(dw: DeployedWeight, n_devices: int) -> bool:
+    """True when every layer's block-column count splits evenly over
+    ``n_devices``: the precondition for equal-shaped macro shards."""
+    return all(int(p["blocks"].shape[0]) % n_devices == 0
+               for p in dw.packed)
+
+
+def deployed_weight_specs() -> Dict[str, tuple]:
+    """The layout contract :func:`shard_weight` applies to a packed dict,
+    as the reference's PartitionSpecs (tuples here): the block-column axis
+    over the macros, the un-permute index replicated."""
+    return {
+        "blocks": (MACRO_AXIS, None, None, None),
+        "scales": (MACRO_AXIS, None),
+        "row_idx": (MACRO_AXIS, None),
+        "nnz": (MACRO_AXIS,),
+        "col_inv": (),
+        "density": (),
+    }
+
+
+def shard_weight(dw: DeployedWeight, mesh: "MacroMesh",
+                 assign: Optional[Callable] = None) -> DeployedWeight:
+    """Column-shard a packed projection over the serving macros.
+
+    ``assign(nnz_counts, n_devices) -> (go,) macro ids`` chooses which
+    block columns live on which macro (``sched.allocate.device_assignment``
+    is the LPT policy; None = contiguous runs). Each packed dict's arrays
+    are permuted into macro order on the column axis, on the mesh's first
+    device, with ``col_inv`` (int32) to restore the logical order after the
+    gather, and each macro's shard is laid on its device. A projection
+    whose columns do not split evenly is returned unchanged (served
+    replicated): sharding never changes which weights exist, only where
+    they live."""
+    n_dev = mesh.size
+    if dw.mesh is not None or n_dev <= 1 or not shardable_columns(dw, n_dev):
+        return dw
+    packed = []
+    for p in dw.packed:
+        counts = p["nnz"].cpu().numpy()
+        go = counts.shape[0]
+        dev = (np.repeat(np.arange(n_dev), go // n_dev) if assign is None
+               else np.asarray(assign(counts, n_dev)))
+        if (np.bincount(dev, minlength=n_dev) != go // n_dev).any():
+            raise ValueError(f"assign must give each of {n_dev} macros "
+                             f"{go // n_dev} of the {go} columns")
+        perm = np.concatenate([np.flatnonzero(dev == d)
+                               for d in range(n_dev)])
+        idx = torch.from_numpy(perm).to(p["blocks"].device)
+        q = {k: p[k].index_select(0, idx).to(mesh.device) for k in _ARRAYS}
+        q["col_inv"] = torch.from_numpy(
+            np.argsort(perm).astype(np.int32)).to(mesh.device)
+        q["density"] = p["density"]
+        q["shards"] = _macro_shards([q[k] for k in _ARRAYS], mesh, 0)
+        packed.append(q)
+    return DeployedWeight(packed, dw.d_in, dw.d_out, dw.bits, mesh=mesh)
+
+
+def unshard_weight(dw: DeployedWeight) -> DeployedWeight:
+    """Undo :func:`shard_weight`: the logical column order (by ``col_inv``)
+    and no placement, on the mesh's first device. This is the
+    serialization form: artifacts store placement-free packings, sharded
+    again at boot onto whatever mesh the serving host has."""
+    if dw.mesh is None:
+        return dw
+    packed = []
+    for p in dw.packed:
+        inv = p["col_inv"].long()
+        packed.append({**{k: p[k].index_select(0, inv) for k in _ARRAYS},
+                       "density": p["density"]})
+    return DeployedWeight(packed, dw.d_in, dw.d_out, dw.bits)
+
+
+def _unpermute(y: torch.Tensor, col_inv: torch.Tensor) -> torch.Tensor:
+    """(M, go * bn) columns in macro order -> logical order, a block
+    column at a time."""
+    m, go = y.shape[0], int(col_inv.shape[-1])
+    return y.view(m, go, -1).index_select(1, col_inv).view(m, -1)
+
+
 def bm_for_rows(rows: int) -> int:
     """The reference's kernel row tile for an activation row count: the
     next power of two in [8, 128], a fixed ladder so that changing batch
@@ -203,7 +343,12 @@ def deployed_matmul(x: torch.Tensor, dw: DeployedWeight, layer: int = 0,
         x = ops.fake_quant(x, a_bits, signed=True,
                            out_dtype=torch.float32)
     lead = x.shape[:-1]
-    y = ops.bsr_matmul(x.reshape(-1, dw.d_in).contiguous(), dw.packed[layer])
+    x2 = x.reshape(-1, dw.d_in).contiguous()
+    p = dw.packed[layer]
+    if dw.mesh is not None:  # one launch a macro, gathered, un-permuted
+        y = _unpermute(ops.bsr_matmul_sharded(x2, p), p["col_inv"])
+    else:
+        y = ops.bsr_matmul(x2, p)
     return y.reshape(*lead, dw.d_out).to(x.dtype)
 
 
@@ -215,9 +360,16 @@ def stacked_matmul(x: torch.Tensor, sw: StackedWeight, layer,
         x = ops.fake_quant(x, a_bits, signed=True,
                            out_dtype=torch.float32)
     lead = x.shape[:-1]
-    y = ops.bsr_matmul_stacked(x.reshape(-1, sw.d_in).contiguous(),
-                               sw.blocks, sw.scales, sw.row_idx, sw.nnz,
-                               layer)
+    x2 = x.reshape(-1, sw.d_in).contiguous()
+    if sw.mesh is not None:
+        # the layer's un-permute index read on the device by its layer id
+        inv = (sw.col_inv.index_select(0, layer).reshape(-1)
+               if torch.is_tensor(layer) else sw.col_inv[int(layer)])
+        y = _unpermute(ops.bsr_matmul_stacked_sharded(x2, sw.shards, layer),
+                       inv)
+    else:
+        y = ops.bsr_matmul_stacked(x2, sw.blocks, sw.scales, sw.row_idx,
+                                   sw.nnz, layer)
     return y.reshape(*lead, sw.d_out).to(x.dtype)
 
 

@@ -29,20 +29,36 @@ the CPU. For CUDA tensors it launches the kernel or raises; ``LAUNCHES``
 counts the launches, ``LAUNCHES_BY_ENTRY`` splits them by entry point and
 ``LAUNCHES_BY_PATH`` by split-K ("split" or "single") and load path
 ("aligned", 16-byte asynchronous copies, or "masked").
+
+Macro sharding (the reference's ``bsr_matmul_sharded`` and
+``bsr_matmul_stacked_sharded``, ``shard_map`` wrappers around the Pallas
+bodies): the ``go`` block columns are split over the macros of a serving
+mesh, each macro holding its own shard on its own device. The sharded
+entry points launch the kernel once a macro on that macro's shard (its
+``nnz`` is the macro's own occupancy) and gather the outputs along N, in
+macro order, on the first macro's device: the reference's tiled
+all-gather. Each launch is planned from the LOGICAL ``go``, the columns of
+all shards together, so a shard runs the S and split count of the
+unsharded call and its columns come out bit for bit as there. The
+output's columns are in macro order; callers un-permute them.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from . import _build
 
+MACRO_AXIS = "macro"  # the serving mesh's axis (launch.shardings)
+
 LAUNCHES = 0
-LAUNCHES_BY_ENTRY: Dict[str, int] = {"bsr_matmul": 0, "bsr_matmul_stacked": 0}
+LAUNCHES_BY_ENTRY: Dict[str, int] = {
+    "bsr_matmul": 0, "bsr_matmul_stacked": 0, "bsr_matmul_sharded": 0,
+    "bsr_matmul_stacked_sharded": 0}
 LAUNCHES_BY_PATH: Dict[str, int] = {
     f"{s} {p}": 0 for s in ("single", "split") for p in ("aligned", "masked")}
 
@@ -51,6 +67,8 @@ _LAYER_CONST: Dict[tuple, torch.Tensor] = {}
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 Layer = Union[int, torch.Tensor]
+# one macro's shard: (blocks, scales, row_idx, nnz), stacked or single-layer
+Shard = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 # the kernel's tiling (csrc/bsr_matmul.cu): BN output columns per block, BK
 # rows of a block's K per pipeline stage, a ring of STAGES bf16 stages (the
@@ -123,16 +141,20 @@ def is_aligned(x: torch.Tensor, blocks: torch.Tensor) -> bool:
             and bn % 16 == 0)
 
 
-def launch_plan(x: torch.Tensor, blocks: torch.Tensor) -> Tuple[Plan, int]:
+def launch_plan(x: torch.Tensor, blocks: torch.Tensor,
+                go: Optional[int] = None) -> Tuple[Plan, int]:
     """(plan, splits) of a call, from shapes and pointers alone (no device
     read, so no host sync). f32 x on the 16-byte path is copied to bf16 when
-    the copy's rows are 16-byte chunks too (K and bk multiples of 8)."""
-    _, go, nmax, bk, bn = blocks.shape
+    the copy's rows are 16-byte chunks too (K and bk multiples of 8). ``go``
+    (default: the blocks' own) is the block columns the plan is made for: a
+    macro's shard passes the whole projection's."""
+    _, go_own, nmax, bk, bn = blocks.shape
     k = int(x.shape[1])
     aligned = is_aligned(x, blocks)
     copy = (x.dtype == torch.float32 and aligned and k % 8 == 0
             and bk % 8 == 0)
-    p = plan(int(x.shape[0]), k // bk, go, bn, x.dtype, aligned, copy)
+    p = plan(int(x.shape[0]), k // bk, go_own if go is None else int(go),
+             bn, x.dtype, aligned, copy)
     return p, p.splits(nmax)
 
 
@@ -211,11 +233,34 @@ def dense_weight(blocks: torch.Tensor, scales: torch.Tensor,
 def bsr_matmul_stacked_plain(x: torch.Tensor, blocks: torch.Tensor,
                              scales: torch.Tensor, row_idx: torch.Tensor,
                              nnz: torch.Tensor, layer: Layer) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``x.float() @`` the selected
-    layer's dense weight."""
+    """Plain PyTorch version of the kernel: ``x @`` the selected layer's
+    dense weight, summed in float64 and rounded once to float32. On the
+    serving path (eq. 5 levels times int8 levels times a power-of-two
+    scale) every product and partial sum is exact in float64, so the result
+    is the same whatever the sum order: a library product picks its order
+    from N, and an f32 sum would give a macro's shard other bits than the
+    whole."""
     _check(x, blocks, scales, row_idx, nnz)
-    return x.float() @ dense_weight(blocks, scales, row_idx, nnz, layer,
-                                    x.shape[1])
+    w = dense_weight(blocks, scales, row_idx, nnz, layer, x.shape[1],
+                     torch.float64)
+    return (x.double() @ w).float()
+
+
+def bsr_matmul_sharded_plain(x: torch.Tensor, shards: Sequence[Shard]
+                             ) -> torch.Tensor:
+    """Plain version of :func:`bsr_matmul_sharded`: the plain product per
+    shard, concatenated in macro order on x's device."""
+    return torch.cat([bsr_matmul_stacked_plain(
+        x.to(s[0].device), *(a[None] for a in s), 0).to(x.device)
+        for s in shards], dim=1)
+
+
+def bsr_matmul_stacked_sharded_plain(x: torch.Tensor,
+                                     shards: Sequence[Shard], layer: Layer
+                                     ) -> torch.Tensor:
+    """Plain version of :func:`bsr_matmul_stacked_sharded`."""
+    return torch.cat([bsr_matmul_stacked_plain(
+        x.to(s[0].device), *s, layer).to(x.device) for s in shards], dim=1)
 
 
 def _layer_tensor(layer: Layer, device: torch.device) -> torch.Tensor:
@@ -232,7 +277,11 @@ def _layer_tensor(layer: Layer, device: torch.device) -> torch.Tensor:
     return _LAYER_CONST[key]
 
 
-def _run(entry, x, blocks, scales, row_idx, nnz, layer: Layer):
+def _run(entry, x, blocks, scales, row_idx, nnz, layer: Layer,
+         plan_go: Optional[int] = None):
+    """One call: the plain version for CPU tensors, else one launch,
+    planned for ``plan_go`` block columns (``launch_plan``; default the
+    blocks' own)."""
     _check(x, blocks, scales, row_idx, nnz)
     if not x.is_cuda:
         if x.device.type == "cpu":
@@ -250,7 +299,7 @@ def _run(entry, x, blocks, scales, row_idx, nnz, layer: Layer):
     y = x.new_empty((m, go * bn), dtype=torch.float32)
     if m == 0 or go == 0:
         return y
-    p, splits = launch_plan(x, blocks)
+    p, splits = launch_plan(x, blocks, plan_go)
     # one workspace on the caller's stream: the splits' partial sums, then
     # f32 x's bf16 copy and the copy pass's flags
     n = go * bn
@@ -296,3 +345,37 @@ def bsr_matmul(x: torch.Tensor, blocks: torch.Tensor, scales: torch.Tensor,
     scales/row_idx (go, nnz_max), nnz (go,)."""
     return _run("bsr_matmul", x, blocks[None], scales[None], row_idx[None],
                 nnz[None], 0)
+
+
+def _sharded(entry, x: torch.Tensor, shards: Sequence[Shard],
+             layer: Layer) -> torch.Tensor:
+    """One launch a macro on its shard and device (x and the layer id
+    copied there when the macro is on another device than x), each planned
+    for all shards' columns; the outputs concatenated in macro order on
+    x's device."""
+    if not shards:
+        raise ValueError("a sharded call needs at least one shard")
+    go = sum(int(s[0].shape[1]) for s in shards)
+    ys = []
+    for s in shards:
+        dev = s[0].device
+        lt = layer.to(dev) if torch.is_tensor(layer) else layer
+        ys.append(_run(entry, x.to(dev), *s, lt, plan_go=go).to(x.device))
+    return torch.cat(ys, dim=1)
+
+
+def bsr_matmul_stacked_sharded(x: torch.Tensor, shards: Sequence[Shard],
+                               layer: Layer) -> torch.Tensor:
+    """The reference's ``bsr_matmul_stacked_sharded``: ``shards[d]`` is
+    macro d's (blocks (L, go_d, nnz_max, bk, bn), scales, row_idx, nnz) on
+    its device; x and the layer id are replicated. y is (M, go * bn), its
+    columns in macro order."""
+    return _sharded("bsr_matmul_stacked_sharded", x, shards, layer)
+
+
+def bsr_matmul_sharded(x: torch.Tensor, shards: Sequence[Shard]
+                       ) -> torch.Tensor:
+    """The reference's ``bsr_matmul_sharded``: the single-layer form, each
+    shard's blocks (go_d, nnz_max, bk, bn)."""
+    return _sharded("bsr_matmul_sharded", x,
+                    [tuple(a[None] for a in s) for s in shards], 0)

@@ -41,6 +41,20 @@ def bsr_matmul(x: torch.Tensor, packed: dict) -> torch.Tensor:
                                      packed["row_idx"], packed["nnz"])
 
 
+def bsr_matmul_sharded(x: torch.Tensor, packed: dict) -> torch.Tensor:
+    """The single-layer product over a macro-sharded packed dict: one
+    launch a macro on ``packed["shards"]``, output columns in macro order
+    (``core.deploy.shard_weight``; callers un-permute by ``col_inv``)."""
+    return cim_bsr_matmul.bsr_matmul_sharded(x, packed["shards"])
+
+
+def bsr_matmul_stacked_sharded(x: torch.Tensor, shards, layer
+                               ) -> torch.Tensor:
+    """The layer-indexed product over a macro-sharded layer stack's
+    per-macro shards (``StackedWeight.shards``), columns in macro order."""
+    return cim_bsr_matmul.bsr_matmul_stacked_sharded(x, shards, layer)
+
+
 def bsr_matmul_stacked(x: torch.Tensor, blocks: torch.Tensor,
                        scales: torch.Tensor, row_idx: torch.Tensor,
                        nnz: torch.Tensor, layer) -> torch.Tensor:

@@ -52,6 +52,12 @@
       --compressed --tile 16x16 --runtime scan \\
       --trace-out /tmp/serve-trace.json --metrics-out /tmp/serve-metrics.json
 
+  # macro-sharded serving: every packed projection's block columns split
+  # over 4 macros by surviving-block count (on one card), the KV heads too
+  # where 4 divides them; the tokens are the unsharded run's
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --compressed --tile 16x16 --mesh macro=4
+
   # static-batch Engine (dense and ssm families)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
       --smoke --engine legacy --batch 4 --prompt-len 16 --new-tokens 32
@@ -60,10 +66,11 @@ The subset of ``repro.launch.serve`` whose modules are ported, with the
 same defaults and the same numpy-seeded traces and prompts. Weights come
 from a ``torch.Generator`` seeded by ``--seed`` (other numbers than
 ``jax.random``'s), or from ``--artifact``. Not ported yet, so argparse
-refuses them: ``--parity-check``, ``--mesh``, ``--profile``,
-``--gateway``, ``--gateway-parity-check``, ``--prefill-chunk``,
-``--prefill-device``, ``--max-backlog-s``, ``--max-pending``. Beside the
-reference's flags: ``--device`` (default cuda). ``--autotune`` times on
+refuses them: ``--parity-check``, ``--profile``, ``--gateway``,
+``--gateway-parity-check``, ``--prefill-chunk``, ``--prefill-device``,
+``--max-backlog-s``, ``--max-pending``. ``--mesh macro=N`` puts its N
+macros on ``--device``. Beside the reference's flags: ``--device``
+(default cuda). ``--autotune`` times on
 that device and keys its cache ``torch-cuda`` or ``torch-cpu``, so a
 cache the reference wrote reads as a miss.
 """
@@ -145,6 +152,18 @@ def prefix_skew_trace(cfg, n_requests: int, shared_len: int, suffix_max: int,
                              ).astype(np.int32)
         reqs.append(Request(f"r{i}", p, max_new))
     return reqs
+
+
+def _parse_mesh(spec, device=None):
+    """'macro=N' -> a macro_mesh(N) on ``device``; '' -> None (one
+    macro)."""
+    if not spec:
+        return None
+    from .shardings import macro_mesh
+    axis, _, n = spec.partition("=")
+    if axis != "macro" or not n.isdigit():
+        raise SystemExit(f"--mesh expects macro=N, got {spec!r}")
+    return macro_mesh(int(n), device)
 
 
 def _parse_tile(spec):
@@ -397,6 +416,7 @@ def _serving_params(args, cfg, init, dev, spec_cfg=None):
 
 
 def _batch(args, cfg, init, dev):
+    mesh = _parse_mesh(args.mesh, dev)
     calibration = _load_calibration(args) if args.spec else None
     spec_cfg = _parse_spec(args.spec, cfg, args.target_sparsity,
                            calibration=calibration)
@@ -410,6 +430,14 @@ def _batch(args, cfg, init, dev):
         print(f"spec: draft tier packed at sparsity "
               f"{spec_cfg.draft_sparsity} "
               f"({json.dumps(draft.report())}), k={spec_cfg.k}")
+    if mesh is not None:
+        sp = deployed.shard(sp, mesh)
+        if draft is not None:
+            draft = deployed.shard(draft, mesh)
+        n_sharded = sum(1 for dw in sp.deployed().values()
+                        if dw.mesh is not None)
+        print(f"macro mesh: {mesh.shape} - {n_sharded} projections "
+              "column-sharded (rest replicated)")
     bcfg = BatchConfig(n_slots=args.slots, block_size=args.block_size,
                        n_blocks=args.kv_blocks,
                        prefix_cache=not args.no_prefix_cache)
@@ -427,8 +455,8 @@ def _batch(args, cfg, init, dev):
                if args.metrics_out or args.trace_out else None)
     srv = BatchServer(cfg, sp, scfg, bcfg,
                       continuous=(args.engine == "batch"), engine=engine,
-                      device=dev, draft=draft, spec=spec_cfg, tracer=tracer,
-                      metrics=metrics)
+                      device=dev, mesh=mesh, draft=draft, spec=spec_cfg,
+                      tracer=tracer, metrics=metrics)
     if spec_cfg is not None and spec_cfg.draft == "layerskip":
         a_on, m_on = srv.spec_masks
         print(f"spec: layerskip masks attn={list(a_on)} mlp={list(m_on)} "
@@ -461,7 +489,7 @@ def _batch(args, cfg, init, dev):
         ref = BatchServer(cfg, sp, scfg,
                           dataclasses.replace(bcfg, prefix_cache=False),
                           continuous=(args.engine == "batch"), engine=engine,
-                          device=dev, draft=draft,
+                          device=dev, mesh=mesh, draft=draft,
                           spec=spec_cfg).run(trace())
         out["tokens_match_unshared"] = bool(all(
             np.array_equal(rep.outputs[r.rid], ref.outputs[r.rid])
@@ -555,6 +583,11 @@ def main(argv=None):
     ap.add_argument("--prefix-parity-check", action="store_true",
                     help="also serve the trace with the prefix cache OFF "
                     "and report tokens_match_unshared")
+    ap.add_argument("--mesh", default="",
+                    help="macro=N: shard compressed projections column-wise "
+                    "over N macros on --device (balanced by surviving "
+                    "blocks) and the paged-KV views by head where N divides "
+                    "the KV heads; the tokens do not change")
     ap.add_argument("--target-sparsity", type=float, default=0.5)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

@@ -28,6 +28,7 @@ from ..core import deploy
 from ..core import quant as Q
 from ..core.cim_layer import CIMConfig
 from ..kernels import ops
+from ..launch.shardings import KVShards
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -184,7 +185,8 @@ def decode_attention_multi(p: dict, xt: torch.Tensor, kview: torch.Tensor,
     row, so each query's output is the same whatever T and the view's
     length.
     Returns (y, k_new, v_new) with k_new/v_new (B, T, KV, dh) for the pool
-    write-back."""
+    write-back. Views split by KV head over the macros (:class:`KVShards`)
+    take :func:`_attention_by_macro`."""
     b, t, _ = xt.shape
     q, k, v = qkv_project(p, xt, cfg, cfg.cim)
     pp = pos[:, None] + torch.arange(t, device=xt.device)[None, :]  # (B, T)
@@ -195,11 +197,41 @@ def decode_attention_multi(p: dict, xt: torch.Tensor, kview: torch.Tensor,
     # kernel widens bf16 K/V itself), so only a narrowing one is made
     cast = lambda a: (a if torch.promote_types(a.dtype, xt.dtype) == xt.dtype
                       else a.to(xt.dtype))
-    o = ops.decode_attention(q, cast(kview), cast(vview), pos, window,
-                             cfg.n_heads, cast(k.to(kview.dtype)),
-                             cast(v.to(vview.dtype)))
+    k_new, v_new = cast(k.to(kview.dtype)), cast(v.to(vview.dtype))
+    if isinstance(kview, KVShards):
+        o = _attention_by_macro(q, KVShards(map(cast, kview.parts)),
+                                KVShards(map(cast, vview.parts)), pos,
+                                window, cfg.n_heads, k_new, v_new)
+    else:
+        o = ops.decode_attention(q, cast(kview), cast(vview), pos, window,
+                                 cfg.n_heads, k_new, v_new)
     y = cim_matmul(o.reshape(b, t, -1), p["wo"], cfg.cim)
     return y, k, v
+
+
+def _attention_by_macro(q: torch.Tensor, kview: KVShards, vview: KVShards,
+                        pos: torch.Tensor, window: int, n_true: int,
+                        k_new: torch.Tensor, v_new: torch.Tensor
+                        ) -> torch.Tensor:
+    """The paged attention with the views split by KV head over the macros:
+    one launch a macro, on its device, over its KV heads and the q heads
+    they serve (a kv head serves a contiguous group of n_true / KV q heads,
+    as ``_expand_kv`` repeats it), the outputs joined on heads on q's
+    device, the padding heads past ``n_true`` zeros as in one launch. Each
+    output row depends only on its own q, keys and position, so the rows
+    are one launch's, bit for bit."""
+    group = n_true // kview.shape[2]
+    outs = []
+    for d, (kp, vp, kn, vn) in enumerate(zip(
+            kview.parts, vview.parts, kview.split(k_new),
+            vview.split(v_new))):
+        hq = kp.shape[2] * group
+        outs.append(ops.decode_attention(
+            q[:, :, d * hq:(d + 1) * hq].to(kp.device), kp, vp,
+            pos.to(kp.device), window, hq, kn, vn).to(q.device))
+    o = torch.cat(outs, dim=2)
+    return F.pad(o, (0, 0, 0, q.shape[2] - n_true)) if q.shape[2] > n_true \
+        else o
 
 
 def gated_mlp(p: dict, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:

@@ -14,6 +14,12 @@ copies the pool between host and device.
 Physical block 0 is scratch: idle lanes read and write it so every decode
 step keeps a fixed shape, and no live slot attends to it.
 
+Macro serving (``mesh=``): when the macro count divides the KV heads
+(:func:`kv_view_spec`), a gather returns the views split by KV head over
+the macros (``launch.shardings.KVShards``), each macro's heads on its
+device, so each macro attends only its own heads. The pool itself stays on
+the mesh's first device.
+
 Block lifecycle: every non-scratch block carries a REFCOUNT; the last
 ``release`` scrubs it to zero and returns it to the LIFO free list. Every
 write path is copy-on-write: a write landing in a block with refcount > 1
@@ -30,7 +36,20 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.cim_bsr_matmul import MACRO_AXIS
+from ..launch.shardings import KVShards
 from ..models.config import ModelConfig
+
+
+def kv_view_spec(cfg: ModelConfig, mesh) -> Optional[tuple]:
+    """Spec of the gathered paged-KV views (L, B, Sv, KV, dh): heads over
+    the ``macro`` axis when the macro count divides the KV heads, else None
+    (served replicated: correctness first). The one place that decides
+    whether macro serving shards KV."""
+    if mesh is not None and mesh.size > 1 \
+            and cfg.n_kv_heads_eff % mesh.size == 0:
+        return (None, None, None, MACRO_AXIS, None)
+    return None
 
 
 @dataclasses.dataclass
@@ -126,11 +145,13 @@ class PagedKVCache:
     pool_k / pool_v: (tiers, n_blocks, L, block_size, KV, dh). ``gather``
     produces the contiguous (L, B, Sv, KV, dh) view a decode step attends
     over, sized by the deepest active slot. ``tiers`` > 1 keeps several
-    pools behind one block layout (shared tables, free list, refcounts)."""
+    pools behind one block layout (shared tables, free list, refcounts).
+    With a ``mesh`` whose macros divide the KV heads, the views come split
+    by head over the macros (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, n_blocks: int,
                  block_size: int, device: torch.device, dtype=None,
-                 tiers: int = 1):
+                 tiers: int = 1, mesh=None):
         if n_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is scratch)")
         if tiers < 1:
@@ -141,6 +162,8 @@ class PagedKVCache:
         self.block_size = block_size
         self.tiers = tiers
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.kv_sharded = kv_view_spec(cfg, mesh) is not None
         shape = (tiers, n_blocks, cfg.n_layers, block_size,
                  cfg.n_kv_heads_eff, cfg.dh)
         dtype = dtype or cfg.param_dtype
@@ -179,6 +202,7 @@ class PagedKVCache:
             "reused_blocks": self.n_reused,
             "cow_copies": self.n_cow,
             "peak_blocks": self.peak_blocks,
+            "kv_heads_sharded": self.kv_sharded,
         }
 
     # -- allocation ---------------------------------------------------------
@@ -292,15 +316,24 @@ class PagedKVCache:
     def gather(self, n_view: int, tier: int = 0,
                slots: Optional[List[int]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(L, B, n_view*block_size, KV, dh) contiguous K/V views."""
+        """(L, B, n_view*block_size, KV, dh) contiguous K/V views, as
+        :class:`KVShards` over the macros when the KV heads shard."""
         tbl = torch.from_numpy(self.view_tables(n_view, slots)).to(
             self.device)
         L, B = self.cfg.n_layers, tbl.shape[0]
 
-        def _g(pool):
-            g = pool[tier][tbl]  # (B, n_view, L, bs, KV, dh)
+        def view(g):  # (B, n_view, L, bs, h, dh) -> (L, B, Sv, h, dh)
             return g.permute(2, 0, 1, 3, 4, 5).reshape(
                 L, B, n_view * self.block_size, *g.shape[-2:])
+
+        def _g(pool):
+            g = pool[tier][tbl]  # (B, n_view, L, bs, KV, dh)
+            if not self.kv_sharded:
+                return view(g)
+            w = g.shape[-2] // self.mesh.size
+            return KVShards(
+                view(g[..., d * w:(d + 1) * w, :]).to(dev).contiguous()
+                for d, dev in enumerate(self.mesh.devices))
 
         return _g(self.pool_k), _g(self.pool_v)
 

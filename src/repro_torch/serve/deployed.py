@@ -8,6 +8,9 @@
 * :func:`compress` runs every 2-D CIM projection (QKV/O, MLP, head) through
   ``deploy_weight``, with the per-projection tiles of a
   :func:`default_schedule` (the MARS mapping search) or one given tile.
+* :func:`shard` lays a compressed model over the serving macros
+  (``launch.shardings.MacroMesh``): every packed projection's block columns
+  split by surviving-block count, the rest replicated; tokens do not change.
 * :func:`save_artifact` / :func:`load_artifact` are the offline artifact
   flow: quantize + prune + pack run once, the packed ServingParams lands on
   disk through ``train.checkpoint`` in the reference's format, and a
@@ -34,6 +37,7 @@ from ..device import DeviceLike
 from ..models import layers as L
 from ..models import registry, transformer
 from ..models.config import ModelConfig
+from ..sched.allocate import device_assignment
 from ..sched.executor import NetworkSchedule, schedule_from_search
 from ..sched.graph import lm_graph
 from ..sched.search import search_mapping
@@ -167,6 +171,35 @@ def compress(cfg: ModelConfig, params: dict,
     return sp
 
 
+def shard(sp: ServingParams, mesh) -> ServingParams:
+    """Lay a compressed model over the serving macro cluster.
+
+    Every :class:`~repro_torch.core.deploy.DeployedWeight` is
+    column-sharded over the mesh's ``macro`` axis with the LPT policy the
+    scheduler balances kernel-groups over macros with
+    (``sched.allocate.device_assignment`` on the per-column surviving-block
+    counts). A projection whose column count the macros do not divide stays
+    replicated; dense leaves (embed, norms, the moe family's router and
+    expert stacks, a tied head) stay replicated on the mesh's first device,
+    where the params must already live. Sharding never changes which
+    blocks exist, so the tokens are those of the unsharded model, bit for
+    bit."""
+    if sp.embed.device != mesh.device:
+        raise ValueError(f"serving params live on {sp.embed.device}, the "
+                         f"mesh's first macro on {mesh.device}")
+
+    def maybe(v):
+        if isinstance(v, D.DeployedWeight):
+            return D.shard_weight(v, mesh, assign=device_assignment)
+        return v
+
+    return ServingParams(
+        embed=sp.embed, final_ln=sp.final_ln,
+        layers=[{k: maybe(v) for k, v in p.items()} for p in sp.layers],
+        head=maybe(sp.head) if sp.head is not None else None,
+        head_t=sp.head_t)
+
+
 # ---------------------------------------------------------------------------
 # Offline serving artifacts: pack once, boot many times
 # ---------------------------------------------------------------------------
@@ -214,10 +247,18 @@ def validate_artifact(path: str, extra: dict, *,
 
 
 def _strip_placement(sp: ServingParams) -> ServingParams:
-    """Serialization form: no derived tied-head cache. (The port never
-    shards a packing, so there is no placement to undo.)"""
-    return ServingParams(embed=sp.embed, final_ln=sp.final_ln,
-                         layers=sp.layers, head=sp.head, head_t=None)
+    """Serialization form: logical column order, no mesh
+    (``core.deploy.unshard_weight``), no derived tied-head cache."""
+
+    def strip(v):
+        if isinstance(v, D.DeployedWeight):
+            return D.unshard_weight(v)
+        return v
+
+    return ServingParams(
+        embed=sp.embed, final_ln=sp.final_ln,
+        layers=[{k: strip(v) for k, v in p.items()} for p in sp.layers],
+        head=strip(sp.head) if sp.head is not None else None, head_t=None)
 
 
 def save_artifact(path: str, sp: ServingParams, cfg: ModelConfig,
@@ -225,8 +266,10 @@ def save_artifact(path: str, sp: ServingParams, cfg: ModelConfig,
                   draft: Optional[ServingParams] = None) -> str:
     """Persist a (compressed or dense) ServingParams as a boot-ready
     artifact, atomically, without the tied-head cache (the loader rebuilds
-    it). ``draft`` makes it two-tier; dense leaves the tiers share by
-    reference are stored once."""
+    it) and without placement: macro-sharded projections are stored in
+    their logical column order, and a boot shards them again with
+    :func:`shard` onto the serving host's mesh. ``draft`` makes it
+    two-tier; dense leaves the tiers share by reference are stored once."""
     meta = {"schema": ARTIFACT_SCHEMA, "arch": cfg.name,
             "family": cfg.family, "n_layers": cfg.n_layers,
             "tiles": [list(t) for t in packed_tiles(sp)],
@@ -405,7 +448,9 @@ def _paged_pass(sp, views_k: torch.Tensor, views_v: torch.Tensor,
     router and experts and a float head take the grouped-product kernel's
     row-by-row products, and each token is routed alone
     (:func:`_mlp_tokenwise`), so a position's logits do not depend on T,
-    the batch or the view's length."""
+    the batch or the view's length. Views split by KV head over the
+    macros (``serve.batching.KVShards``) run the attention once a macro on
+    its heads, which gives the same rows."""
     x = L.embed(sp.embed, tokens, cfg.param_dtype)  # (B, T, D)
     windows, thetas = transformer._layer_kind_arrays(cfg)
     ks, vs = [], []
@@ -419,8 +464,9 @@ def _paged_pass(sp, views_k: torch.Tensor, views_v: torch.Tensor,
             x = x + attn
         else:
             if zeros is None:
-                zeros = views_k.new_zeros(tuple(x.shape[:2])
-                                          + tuple(views_k.shape[3:]))
+                zeros = torch.zeros(tuple(x.shape[:2])
+                                    + tuple(views_k.shape[3:]),
+                                    dtype=views_k.dtype, device=x.device)
             kn = vn = zeros
         if mlp_on is None or mlp_on[i]:
             h = L.rmsnorm_rows(x, p["ln2"])

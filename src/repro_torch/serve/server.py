@@ -16,6 +16,13 @@ through one multi-token ``verify_step``.
 ``tracer``/``metrics`` (``repro_torch.obs``) opt a server into phase spans,
 request lifecycle tracks, occupancy gauges and fenced dispatch timing; the
 default no-op singletons leave the step untouched.
+
+``mesh=`` (a ``launch.shardings.MacroMesh``) serves over the macro
+cluster: pass ``deployed.shard(sp, mesh)`` so the projections run one
+launch a macro; the KV views are split by head over the macros where the
+macro count divides the KV heads, and then the block pool holds
+``n_blocks`` per macro. The loop is the same for 1 and N macros, and so are
+the tokens.
 """
 from __future__ import annotations
 
@@ -28,11 +35,12 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.timing import DispatchTimer
+from ..launch.shardings import MacroMesh
 from ..models.config import ModelConfig
 from ..obs import NULL_METRICS, NULL_TRACER, phase_scope
 from . import deployed, stacked
 from . import spec as spec_mod
-from .batching import PagedKVCache, Request, RequestQueue, Slot
+from .batching import PagedKVCache, Request, RequestQueue, Slot, kv_view_spec
 from .engine import ServeConfig, sample_tokens
 from .prefix import PrefixTrie
 
@@ -133,7 +141,8 @@ class BatchServer:
     verify accepts the longest greedy-matching prefix plus a correction
     token). All three give identical greedy tokens; spec is greedy-only.
     ``device=None`` means ``cuda``; the serving params must already live on
-    that device. ``mesh`` (macro-sharded serving) is not ported."""
+    that device. ``mesh`` (a ``MacroMesh`` whose first macro is the params'
+    device) turns on macro serving, as the module docstring says."""
 
     def __init__(self, cfg: ModelConfig, sp: deployed.ServingParams,
                  scfg: Optional[ServeConfig] = None,
@@ -146,8 +155,10 @@ class BatchServer:
         if engine not in ("loop", "scan", "spec"):
             raise ValueError(
                 f"engine must be 'loop', 'scan' or 'spec', got {engine!r}")
-        if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet")
+        if mesh is not None and not isinstance(mesh, MacroMesh):
+            raise NotImplementedError(
+                "mesh= takes a launch.shardings.MacroMesh (macro_mesh(n)); "
+                f"a {type(mesh).__name__} is not ported")
         if engine != "spec" and (draft is not None or spec is not None):
             raise ValueError(
                 f"draft/spec are speculative-decode arguments but engine="
@@ -157,6 +168,17 @@ class BatchServer:
         if sp.embed.device.type != self.device.type:
             raise ValueError(f"serving params live on {sp.embed.device}, "
                              f"the server on {self.device}")
+        if mesh is not None and sp.embed.device != mesh.device:
+            raise ValueError(f"serving params live on {sp.embed.device}, "
+                             f"the mesh's first macro on {mesh.device}")
+        if any(dw.mesh not in (None, mesh)
+               for dw in sp.deployed().values()):
+            raise ValueError("sp is sharded over another mesh than mesh=")
+        self.mesh = mesh
+        self.n_devices = mesh.size if mesh is not None else 1
+        # the pool scales by the macros only where the KV heads shard
+        self._kv_scale = (self.n_devices
+                          if kv_view_spec(cfg, mesh) is not None else 1)
         self.cfg = cfg
         self.sp = sp
         self.engine = engine
@@ -492,9 +514,10 @@ class BatchServer:
         q = RequestQueue(requests)
         # only the reprune family keeps a second KV tier; the layerskip
         # draft reads the target's own cache
-        kv = PagedKVCache(cfg, bcfg.n_slots, bcfg.n_blocks, bcfg.block_size,
-                          device=self.device,
-                          tiers=2 if self._draft_tier() is not None else 1)
+        kv = PagedKVCache(cfg, bcfg.n_slots, bcfg.n_blocks * self._kv_scale,
+                          bcfg.block_size, device=self.device,
+                          tiers=2 if self._draft_tier() is not None else 1,
+                          mesh=self.mesh)
         slots: List[Optional[Slot]] = [None] * bcfg.n_slots
         # the trie lives per run() so traces are independent
         self._trie = PrefixTrie(kv) if bcfg.prefix_cache else None
@@ -585,6 +608,8 @@ class BatchServer:
                     finish(i)
 
         wall = self._now()
+        kv_stats = kv.stats()
+        kv_stats["n_devices"] = self.n_devices
         snap = None
         if self._obs:
             snap = self.metrics.snapshot() or None
@@ -604,7 +629,7 @@ class BatchServer:
             n_requests=len(outputs),
             total_tokens=sum(len(o) for o in outputs.values()),
             wall_s=wall, n_decode_steps=n_steps, ttft_s=ttft,
-            tpot_s=tpot, outputs=outputs, kv_stats=kv.stats(),
+            tpot_s=tpot, outputs=outputs, kv_stats=kv_stats,
             spec=(self._spec_stats.to_json()
                   if self._spec_stats is not None else None),
             queue_wait_s=queue_wait, metrics=snap, prefix=prefix,

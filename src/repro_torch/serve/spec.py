@@ -165,7 +165,13 @@ def _redeploy_sparser(dw: D.DeployedWeight, draft_sparsity: float
     ``draft_sparsity``, and the survivors are re-packed with the SAME tile
     on the packing's device. Masking quantized levels with 0/1 keeps the
     surviving blocks' int8 levels identical to the target tier's: the draft
-    differs from the target ONLY in which blocks exist."""
+    differs from the target ONLY in which blocks exist. A macro-sharded
+    packing is refused: build the draft from the placement-free one and
+    shard both tiers afterwards."""
+    if dw.mesh is not None:
+        raise ValueError(
+            "build the draft tier from the placement-free packing and "
+            "shard both tiers afterwards (deployed.shard)")
     bk, bn = dw.tile
     packed = []
     for p in dw.packed:
@@ -222,10 +228,14 @@ def draft_serving(cfg: ModelConfig, sp: DP.ServingParams,
 
 def _block_set(sw: D.StackedWeight, li: int) -> set:
     """The set of live (block-row, block-col) coordinates of layer ``li``
-    in a stacked envelope (host side)."""
+    in a stacked envelope (host side), columns in their logical order: a
+    macro-sharded envelope's are in macro order, each projection's by its
+    own placement, so they are put back through ``col_inv``."""
     nnz = sw.nnz[li].cpu().numpy()
     ri = sw.row_idx[li].cpu().numpy()
-    return {(int(ri[g, s]), g)
+    col = (np.argsort(sw.col_inv[li].cpu().numpy())
+           if sw.col_inv is not None else np.arange(nnz.shape[0]))
+    return {(int(ri[g, s]), int(col[g]))
             for g in range(nnz.shape[0]) for s in range(int(nnz[g]))}
 
 

@@ -74,7 +74,8 @@ def stack(sp: DP.ServingParams) -> StackedParams:
     """ServingParams (per-layer dicts) -> StackedParams. Every projection
     must be packed in all layers or in none, with one uniform tile. A float
     leaf stacked by a copy is rebound in ``sp`` to a view of the copy (see
-    the module docstring)."""
+    the module docstring). Placement is kept: macro-sharded projections
+    stack into macro-sharded envelopes (``core.deploy.stack_deployed``)."""
     if not sp.layers:
         raise ValueError("stack: ServingParams has no layers")
     keys = list(sp.layers[0].keys())

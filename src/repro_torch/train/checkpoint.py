@@ -95,10 +95,18 @@ def tree_spec(tree: Any, leaves: List[np.ndarray],
     if tree is None:
         return {"t": "none"}
     if isinstance(tree, D.DeployedWeight):
+        if tree.mesh is not None:
+            raise ValueError(
+                "serialize placement-free packings: unshard_weight() first "
+                "(mesh is excluded from artifact aux by design)")
         return {"t": "deployed", "d_in": tree.d_in, "d_out": tree.d_out,
                 "bits": tree.bits,
                 "packed": [tree_spec(p, leaves, _memo) for p in tree.packed]}
     if isinstance(tree, D.StackedWeight):
+        if tree.mesh is not None:
+            raise ValueError(
+                "serialize placement-free stacks (mesh excluded from "
+                "artifact aux); restack on the serving host's mesh")
         return {"t": "stacked", "d_in": tree.d_in, "d_out": tree.d_out,
                 "bits": tree.bits,
                 "arrays": [tree_spec(getattr(tree, k, None), leaves, _memo)
@@ -169,8 +177,9 @@ def tree_from_spec(spec: Any, leaves: List[np.ndarray],
         packed = [rec(p) for p in spec["packed"]]
         if any("col_inv" in p for p in packed):
             raise NotImplementedError(
-                "this packing is macro-sharded (col_inv); macro sharding is "
-                "not ported yet - save it unsharded")
+                "this packing is macro-sharded (col_inv): artifacts hold "
+                "placement-free packings (save_pytree refuses a sharded "
+                "one); save it unsharded and shard it at boot")
         return D.DeployedWeight(packed, spec["d_in"], spec["d_out"],
                                 spec["bits"])
     if t == "stacked":
@@ -178,8 +187,8 @@ def tree_from_spec(spec: Any, leaves: List[np.ndarray],
                                                  for a in spec["arrays"])
         if col_inv is not None:
             raise NotImplementedError(
-                "this stack is macro-sharded (col_inv); macro sharding is "
-                "not ported yet")
+                "this stack is macro-sharded (col_inv): artifacts hold "
+                "placement-free stacks; restack on the serving host's mesh")
         return D.StackedWeight(blocks, scales, row_idx, nnz, spec["d_in"],
                                spec["d_out"], spec["bits"])
     if t == "serving_params":

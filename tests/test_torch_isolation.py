@@ -83,3 +83,17 @@ def test_moe_slice_modules_are_walked():
                 "configs.stablelm_12b", "configs.gemma3_27b"):
         assert f"repro_torch.{mod}" in names, mod
     assert os.path.exists(os.path.join(PKG_DIR, "csrc", "grouped_matmul.cu"))
+
+
+def test_macro_sharding_modules_are_walked():
+    """The import walk above reaches the macro-sharding slice's mesh module
+    (``launch.shardings``) and the modules it threads through, and the
+    sharded entry points sit in the block-sparse kernel's wrapper."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    for mod in ("launch.shardings", "launch.serve", "serve.batching",
+                "serve.server", "core.deploy"):
+        assert f"repro_torch.{mod}" in names, mod
+    text = open(os.path.join(PKG_DIR, "kernels", "cim_bsr_matmul.py")).read()
+    for entry in ("def bsr_matmul_sharded(", "def bsr_matmul_stacked_sharded("):
+        assert entry in text, entry

@@ -310,7 +310,7 @@ def test_spec_run_persists_acceptance_and_auto_reads_it(tmp_path, capsys):
             if r["family"] == "reprune"} == {"calibrated"}
 
 
-@pytest.mark.parametrize("flag", [["--profile", "p"], ["--mesh", "macro=2"],
+@pytest.mark.parametrize("flag", [["--profile", "p"], ["--max-pending", "4"],
                                   ["--gateway", "t.json"],
                                   ["--parity-check"]])
 def test_unported_flag_exits_2(flag):
