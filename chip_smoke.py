@@ -114,9 +114,15 @@ needed. Phases (any failure exits non-zero):
               full-width, full-depth mamba2-780m (QAT) through the Engine
               fallback; the booted artifact once more with --spec
               draft=layerskip (no second packing), --trace-out and
-              --metrics-out, tokens equal to the booted scan run's and
-              both files validated; launch counts for every run; and
-              phase 13's --mesh run (see there);
+              --metrics-out and --parity-check, tokens equal to the
+              booted scan run's, both files validated and
+              tokens_match_target true; the booted artifact as two
+              tenants of --gateway (priorities 1 and 0, --requests 4)
+              with --gateway-parity-check, tokens_match_dedicated=True
+              for both; a booted scan run with --profile DIR, its
+              torch.profiler trace parsed and naming the block-sparse
+              kernel; launch counts for every run; and phase 13's --mesh
+              run (see there);
   7. profile - torch.profiler over a short scan-engine run, a short
               spec-engine run and a short mamba2 generate: the device's
               busy share and its top kernels, and in the yi-6b runs
@@ -234,6 +240,28 @@ needed. Phases (any failure exits non-zero):
               macro=MACRO_CLI on the scan runtime, tokens equal the
               unsharded booted scan run's, launch counts exact. Phase 8
               times the sharded call (times_macro).
+ 14. gateway - run after phase 13: the multi-tenant gateway
+              (repro_torch.gateway) on the card. Two tenants of phase 3's
+              4-layer packing behind one shared pool of GW_BLOCKS blocks:
+              acme (priority 1, phase 3's packing) and bolt (priority 0,
+              seed 1 packed the same way), each sending phase 3's trace;
+              (a) unchunked: each tenant's tokens bit for bit a dedicated
+              scan BatchServer's, launch counts exact from the reports'
+              prefills and per-tenant rounds, prefix hits those of the
+              dedicated servers (the same prompts on both tenants, no hit
+              crosses); (b) chunked prefill of GW_CHUNK tokens: each
+              projection's chunk launch plan against the whole prompts',
+              and every token that differs from (a) held by the margin
+              rule (MARGIN_TOL) on logits recomputed by prefill_last; (c)
+              acme swapped in place at GW_SWAP_STEP to its packing with
+              the levels negated (envelope signatures equal): no build,
+              no new block-sparse launch plan, later admissions bit for
+              bit a dedicated server's on the new packing; bolt swapped to
+              GW_STAGED_TILE (staged, one build more, the same check); a
+              5-layer config refused; (d) GW_MAX_PENDING under the offered
+              load: only priority 0 shed for queue_overflow, acme fully
+              served, an unmeetable deadline shed; each tenant's tokens/s,
+              TTFT and decode-step p50.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -509,9 +537,46 @@ MACRO_SYMS = ("bsr_x_to_bf16", "bsr_matmul_kernel", "bsr_split_reduce",
               "CatArrayBatchedCopy", "indexSelect")
 SHARDED_ENTRIES = ("bsr_matmul_sharded", "bsr_matmul_stacked_sharded")
 
+# the gateway phase (14): two tenants of phase 3's model behind one pool of
+# GW_BLOCKS blocks (phase 3's slots and block size); chunked prefill of
+# GW_CHUNK tokens a step; hot swaps at GW_SWAP_STEP; the overload run's
+# queue bound, below the 16 requests offered; the staged swap's tile
+GW_BLOCKS = 192
+GW_CHUNK = 32
+GW_SWAP_STEP = 3
+GW_MAX_PENDING = 12
+GW_STAGED_TILE = (64, 64)
+# the cli phase's --profile run (a short trace: the Chrome trace of the
+# whole batch run is ~0.8 M events, 20 s to write)
+CLI_PROFILE = ["--requests", "4", "--prompt-len", "128", "--new-tokens",
+               "8", "--slots", "4", "--block-size", "16", "--kv-blocks",
+               "256"]
+# the cli phase's gateway run: the booted 32-layer artifact as two tenants
+CLI_GATEWAY = ["--dtype", "bfloat16", "--requests", "4", "--prompt-len",
+               "128", "--new-tokens", "32", "--slots", "4", "--block-size",
+               "16", "--kv-blocks", "256"]
+
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+class Tee:
+    """A stdout that also keeps what was written: the CLI's report lines
+    (``tokens_match_dedicated=...``, ``"tokens_match_target": ...``)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
 
 
 def reset_launches(kern) -> None:
@@ -1810,7 +1875,8 @@ def cli(torch, kern, card):
     def run(self, requests):
         rep = orig["run"][1](self, requests)
         rec["reports"].append(rep)
-        rec["masks"] = self.spec_masks
+        if self.spec_masks is not None:
+            rec["masks"] = self.spec_masks
         return rep
 
     D.deploy_weight = deploy_weight
@@ -1831,9 +1897,12 @@ def cli(torch, kern, card):
         torch.cuda.synchronize()
         reset_launches(kern)
         log(f"[cli] {label}: main({' '.join(argv)})")
-        out = CLI.main(argv)
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            out = CLI.main(argv)
         torch.cuda.synchronize()
         counts[f"cli {label}"] = launch_counts(kern)
+        rec["stdout"] = tee.text()
         return out
 
     try:
@@ -1925,15 +1994,24 @@ def cli(torch, kern, card):
         rep = drive("yi-6b batch spec layerskip",
                     yi + CLI_BATCH + CLI_SPEC + ["--trace-out", trace_out,
                                                  "--metrics-out",
-                                                 metrics_out])
+                                                 metrics_out,
+                                                 "--parity-check"])
         rec.pop("booted")
         got = counts["cli yi-6b batch spec layerskip"]
         want = {}
-        for r in rec["reports"]:  # warm-up and measured runs
-            for key, n in spec_launches(cfg, r, rec["masks"]).items():
+        # warm-up and measured spec runs, then --parity-check's scan run
+        for r in rec["reports"]:
+            n_spec = (spec_launches(cfg, r, rec["masks"]) if r.spec
+                      else compressed_launches(
+                          cfg, "scan", r.n_requests + r.n_decode_steps,
+                          paged_passes(r)))
+            for key, n in n_spec.items():
                 want[key] = want.get(key, 0) + n
         assert got == want, (got, want)
+        assert [r.spec is None for r in rec["reports"]] == [False, False,
+                                                            True]
         assert rec["deploy_weight"] == 0
+        assert '"tokens_match_target": true' in rec["stdout"]
         for rid, toks in batch["scan"].outputs.items():
             assert (rep.outputs[rid] == toks).all(), \
                 f"{rid}: --spec tokens != the booted scan run's"
@@ -1950,7 +2028,66 @@ def cli(torch, kern, card):
             f"{j['round_p50_ms']} tokens_per_s {rep.tokens_per_s:.2f} "
             f"(scan {batch['scan'].tokens_per_s:.2f}); --trace-out "
             f"{n_ev} events and --metrics-out {n_inst} instruments valid; "
-            f"launches {got} ({card})")
+            f"--parity-check tokens_match_target true; launches {got} "
+            f"({card})")
+        # the gateway: the booted artifact as two tenants, audited against
+        # dedicated scan servers
+        t0 = time.perf_counter()
+        tenants_json = os.path.join(tmp, "tenants.json")
+        with open(tenants_json, "w") as f:
+            json.dump({"tenants": [
+                {"name": "acme", "arch": "yi-6b", "artifact": art,
+                 "priority": 1},
+                {"name": "bolt", "arch": "yi-6b", "artifact": art,
+                 "priority": 0}]}, f)
+        rep = drive("yi-6b gateway", CLI_GATEWAY + [
+            "--gateway", tenants_json, "--gateway-parity-check"])
+        rec.pop("booted")
+        got = counts["cli yi-6b gateway"]
+        want = gateway_launches(cfg, rep)
+        for r in rec["reports"]:  # the two dedicated servers
+            for key, n in compressed_launches(
+                    cfg, "scan", r.n_requests + r.n_decode_steps,
+                    paged_passes(r)).items():
+                want[key] = want.get(key, 0) + n
+        assert same_counts(got, want), (got, want)
+        assert len(rec["reports"]) == 2 and rec["deploy_weight"] == 0
+        for name in ("acme", "bolt"):
+            assert (f"gateway: tenant={name} tokens_match_dedicated=True"
+                    in rec["stdout"]), name
+        log(f"[cli] yi-6b gateway: two tenants booted from the 32-layer "
+            f"artifact; tokens_match_dedicated=True for both; "
+            + "; ".join(f"{n} tokens_per_s {r.tokens_per_s:.2f} ttft_p50_s "
+                        f"{r.to_json()['ttft']['p50']} decode_step_p50_s "
+                        f"{r.to_json()['tpot']['p50']}"
+                        for n, r in rep.per_tenant.items())
+            + f"; launches {got} exact; {time.perf_counter() - t0:.1f} s "
+            f"({card})")
+        # --profile: a torch.profiler Chrome trace of the booted scan run
+        t0 = time.perf_counter()
+        prof = os.path.join(tmp, "profile")
+        rep = drive("yi-6b batch scan profile",
+                    yi + CLI_PROFILE + ["--runtime", "scan", "--profile",
+                                        prof])
+        rec.pop("booted")
+        got = counts["cli yi-6b batch scan profile"]
+        want = compressed_launches(
+            cfg, "scan", sum(r.n_requests + r.n_decode_steps
+                             for r in rec["reports"]),
+            sum(paged_passes(r) for r in rec["reports"]))
+        assert got == want, (got, want)
+        assert f"profile: torch.profiler trace -> {prof}" in rec["stdout"]
+        with open(os.path.join(prof, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        n_bsr = sum("bsr_matmul_kernel" in str(e.get("name", ""))
+                    for e in events)
+        # (a CPU rehearsal, DEV = "cpu", runs the plain path: no kernel)
+        assert n_bsr > 0 or DEV == "cpu", \
+            "the profile names no block-sparse kernel"
+        log(f"[cli] yi-6b batch scan --profile: the trace parses, "
+            f"{len(events)} events, {n_bsr} of them bsr_matmul_kernel; "
+            f"launches {got}; "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
         legacy = {}
         for runtime in ("scan", "loop"):
             out = drive(f"yi-6b legacy {runtime}",
@@ -4139,6 +4276,313 @@ def macro(torch, kern, cfg, sp, sxp, draft, scan, card):
     return counts, err, sharded
 
 
+def gateway_launches(cfg, rep) -> dict:
+    """The launches of an unchunked gateway run over the scan runtime, from
+    its per-tenant reports: each request's prefill (or prefix-hit suffix
+    pass) and each of its tenant's decode rounds is one forward, as in a
+    dedicated BatchServer (``compressed_launches``), summed over tenants."""
+    want = {}
+    for r in rep.per_tenant.values():
+        for key, n in compressed_launches(cfg, "scan",
+                                          r.n_requests + r.n_decode_steps,
+                                          paged_passes(r)).items():
+            want[key] = want.get(key, 0) + n
+    return want
+
+
+def gw_trace(Request, vocab, tenant, priority):
+    """Phase 3's trace for one tenant: its rids prefixed by the tenant."""
+    return [Request(f"{tenant}-{r.rid}", r.prompt, r.max_new_tokens,
+                    priority=priority, tenant=tenant)
+            for r in make_trace(Request, vocab)]
+
+
+def negated(sp):
+    """``sp`` with every packed projection's int8 levels negated: the same
+    masks, row_idx, nnz and scales, so the same stacked envelope (the
+    in-place swap's packing); the float leaves are shared."""
+    from repro_torch.core import deploy as D
+    from repro_torch.serve import deployed as DP
+
+    def neg(v):
+        if isinstance(v, D.DeployedWeight):
+            return dataclasses.replace(v, packed=[
+                {**p, "blocks": -p["blocks"]} for p in v.packed])
+        return v
+
+    return DP.ServingParams(
+        embed=sp.embed, final_ln=sp.final_ln,
+        layers=[{k: neg(v) for k, v in p.items()} for p in sp.layers],
+        head=neg(sp.head), head_t=sp.head_t)
+
+
+def gateway(torch, kern, cfg, sp, card):
+    """Phase 14 (gateway): ``repro_torch.gateway`` on the card. Two
+    tenants of phase 3's model behind one shared pool: acme (priority 1)
+    on phase 3's packing, bolt (priority 0) on seed 1's, packed the same
+    way; each sends phase 3's trace (the same prompts). (a) unchunked: each
+    tenant's tokens bit for bit a dedicated scan BatchServer's, launch
+    counts exact (``gateway_launches``), prefix hits those of the dedicated
+    server (no hit crosses tenants). (b) chunked prefill (GW_CHUNK): per
+    projection whether a chunk's launch plan splits as the whole prompt's;
+    a token that differs from (a) is a fault only under the margin rule,
+    on logits recomputed by ``prefill_last`` over the prompt and the
+    tokens before the divergence. (c) acme swaps in place at GW_SWAP_STEP
+    to a packing of its envelope (signatures equal before the run): mode
+    inplace, no build after it, no new BSR launch plan (the run repeated
+    after a warm-up), the requests admitted after it bit for bit a
+    dedicated server's on the new packing; bolt swaps to GW_STAGED_TILE
+    (staged, one build more), the same for its later requests; a 5-layer
+    config refused ("KV geometry"). (d) GW_MAX_PENDING below the offered
+    load: every queue_overflow shed has priority 0, acme is fully served,
+    and a request with an unmeetable deadline is shed for it."""
+    import numpy as np
+    from repro_torch.gateway import (Gateway, GatewayConfig, SwapEvent,
+                                     TenantRuntime, envelope_signature)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sched.pricing import Pricer
+    from repro_torch.serve import BatchConfig, BatchServer, Request
+    from repro_torch.serve import deployed as DP
+    from repro_torch.serve import stacked as ST
+    K = kern[0]
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
+                         device=DEV)
+    packs = {"acme": sp,
+             "bolt": DP.compress(cfg, params, target_sparsity=SPARSITY,
+                                 tile=TILE, uniform=True)}
+    staged = DP.compress(cfg, params, target_sparsity=SPARSITY,
+                         tile=GW_STAGED_TILE, uniform=True)
+    del params
+    neg = negated(sp)
+    torch.cuda.synchronize()
+    log(f"[gateway] bolt packed from seed 1 at {TILE} and "
+        f"{GW_STAGED_TILE}, acme's swap packing its levels negated: "
+        f"{time.perf_counter() - t0:.1f} s")
+    prio = {"acme": 1, "bolt": 0}
+    knobs = dict(n_slots=N_SLOTS, block_size=16, n_blocks=GW_BLOCKS)
+    bcfg = BatchConfig(n_slots=N_SLOTS, block_size=16, n_blocks=96)
+    counts = {}
+    # one pricer for every gateway of the phase: its prices are memoized
+    # per prompt-length bucket, and each bucket simulates the 4-layer graph
+    pricer = Pricer()
+
+    def tenants():
+        return [TenantRuntime(n, cfg, packs[n], priority=prio[n])
+                for n in ("acme", "bolt")]
+
+    def gateway_of(ts, cls=Gateway, **over):
+        return cls(ts, GatewayConfig(**knobs, **over), pricer=pricer,
+                   device=DEV)
+
+    def trace():
+        return (gw_trace(Request, cfg.vocab, "acme", 1)
+                + gw_trace(Request, cfg.vocab, "bolt", 0))
+
+    def dedicated(pack, reqs):
+        return BatchServer(cfg, pack, engine="scan", bcfg=bcfg,
+                           device=DEV).run(
+            [Request(r.rid, r.prompt, r.max_new_tokens) for r in reqs])
+
+    def served(label, gw, reqs, swaps=None):
+        torch.cuda.synchronize()
+        reset_launches(kern)
+        t0 = time.perf_counter()
+        rep = gw.run(reqs, swaps=swaps)
+        torch.cuda.synchronize()
+        counts[f"gateway {label}"] = launch_counts(kern)
+        secs = time.perf_counter() - t0
+        for name, r in rep.per_tenant.items():
+            j = r.to_json()
+            log(f"[gateway] {label} {name}: requests {r.n_requests} tokens "
+                f"{r.total_tokens} tokens_per_s {r.tokens_per_s:.2f} "
+                f"ttft_p50_s {j['ttft']['p50']} decode_step_p50_s "
+                f"{j['tpot']['p50']} rounds {r.n_decode_steps} prefix_hits "
+                f"{r.prefix['hits']}; {secs:.2f} s ({card})")
+        return rep
+
+    def margins(params_of, mcfg, ref, other, reqs):
+        """(divergences, faults) of ``other``'s tokens against ``ref``'s
+        under the margin rule: at a request's first differing step, the
+        top-2 margin of ``prefill_last``'s logits over the prompt and the
+        tokens ``ref`` emitted before it; a fault above MARGIN_TOL."""
+        diverged, faults = [], []
+        for r in reqs:
+            a = ref.per_tenant[r.tenant].outputs[r.rid]
+            b = other.per_tenant[r.tenant].outputs[r.rid]
+            assert len(a) == len(b) == r.max_new_tokens, r.rid
+            if (a == b).all():
+                continue
+            d = int(np.nonzero(a != b)[0][0])
+            seq = np.concatenate([r.prompt, a[:d]]).astype(np.int32)
+            pad = -(-len(seq) // 16) * 16
+            toks = torch.from_numpy(np.pad(seq, (0, pad - len(seq)))[None])
+            logits, _, _ = DP.prefill_last(params_of[r.tenant], toks.to(DEV),
+                                           len(seq), mcfg)
+            top = logits.float().topk(2, dim=-1).values[0]
+            diverged.append((r.rid, d, float(top[0] - top[1])))
+            if diverged[-1][2] > MARGIN_TOL:
+                faults.append(diverged[-1])
+        return diverged, faults
+
+    def recording():
+        admitted = {}
+
+        class Recording(Gateway):
+            """Records the packing each request was admitted on."""
+
+            def _start_slot(self, i, rt, req, *a, **k):
+                admitted[req.rid] = rt.sp
+                return super()._start_slot(i, rt, req, *a, **k)
+
+        return Recording, admitted
+
+    # (a) unchunked, against dedicated servers
+    gateway_of(tenants()).run(
+        [r for r in trace() if r.rid.endswith("-r0")])  # warm-up
+    rep = served("unchunked", gateway_of(tenants()), trace())
+    got, want = counts["gateway unchunked"], gateway_launches(cfg, rep)
+    assert same_counts(got, want), (got, want)
+    for name in ("acme", "bolt"):
+        mine = [r for r in trace() if r.tenant == name]
+        ded = dedicated(packs[name], mine)
+        out = rep.per_tenant[name]
+        for r in mine:
+            assert (out.outputs[r.rid] == ded.outputs[r.rid]).all(), \
+                f"{r.rid}: gateway tokens != the dedicated server's"
+        assert (out.prefix["hits"], out.prefix["lookups"]) == (
+            ded.prefix["hits"], ded.prefix["lookups"]) and \
+            out.prefix["hits"] >= 1, (out.prefix, ded.prefix)
+    log(f"[gateway] unchunked: both tenants' tokens equal dedicated scan "
+        f"servers' on all {len(trace())} requests; prefix hits per tenant "
+        f"{ {n: r.prefix['hits'] for n, r in rep.per_tenant.items()} } as "
+        f"the dedicated servers' (the same prompts on both tenants: no hit "
+        f"crosses tenants); launches {got} exact over "
+        f"{sum(r.n_requests for r in rep.per_tenant.values())} prefills "
+        f"and {sum(r.n_decode_steps for r in rep.per_tenant.values())} "
+        f"rounds ({card})")
+
+    # (b) chunked prefill: launch plans and the margin rule
+    gw = gateway_of(tenants(), prefill_chunk=GW_CHUNK)
+    chunked = served(f"chunked {GW_CHUNK}", gw, trace())
+    params = gw.tenants["acme"].params
+    rows = sorted({-(-len(r.prompt) // 16) * 16 for r in trace()})
+    projections = [(k, w.blocks, w.d_in) for k, w in params.packed.items()]
+    projections.append(("head", params.head.packed[0]["blocks"][None],
+                        params.head.d_in))
+    same = {}
+    for name, blocks, d_in in projections:
+        x = lambda m: torch.empty((m, d_in), device=DEV)
+        pc, sc = K.launch_plan(x(GW_CHUNK), blocks)
+        whole = [K.launch_plan(x(m), blocks) for m in rows]
+        same[name] = all(p.slots == pc.slots and s == sc for p, s in whole)
+        log(f"[gateway] chunked {name}: a {GW_CHUNK}-row chunk runs S "
+            f"{pc.slots} in {sc} split(s); the whole prompts ({rows} rows) "
+            f"S/splits {[(p.slots, s) for p, s in whole]}; equal {same[name]}")
+    diverged, faults = margins({n: gw.tenants[n].params for n in packs},
+                               cfg, rep, chunked, trace())
+    log(f"[gateway] chunked {GW_CHUNK} vs unchunked, compressed bf16: "
+        f"{len(trace()) - len(diverged)} of {len(trace())} requests equal "
+        f"bit for bit; divergences (rid, step, top-2 margin) {diverged}; "
+        f"{len(faults)} above MARGIN_TOL {MARGIN_TOL} (printed, not held: "
+        f"eq. 5 amplifies the chunks' other sum orders on random weights, "
+        f"as phase 3's card-vs-CPU gap); projections whose chunk plans "
+        f"split as the whole prompts' "
+        f"{sorted(k for k, v in same.items() if v)}; launches "
+        f"{counts[f'gateway chunked {GW_CHUNK}']} ({card})")
+    # the margin rule held where eq. 5 cannot amplify: the same model,
+    # seed 0, dense in f32 (no eq. 5; the paged pass's kernels run)
+    fcfg = dataclasses.replace(cfg, dtype="float32")
+    dense = DP.from_params(fcfg, init_params(
+        fcfg, torch.Generator(device=DEV).manual_seed(0), device=DEV))
+    reqs = gw_trace(Request, cfg.vocab, "acme", 1)
+    runs = [served(f"dense f32 {label}", gateway_of(
+        [TenantRuntime("acme", fcfg, dense)], prefill_chunk=chunk), reqs)
+        for label, chunk in (("unchunked", 0),
+                             (f"chunked {GW_CHUNK}", GW_CHUNK))]
+    f_diverged, f_faults = margins({"acme": ST.stack(dense)}, fcfg, *runs,
+                                   reqs)
+    del dense, runs
+    assert not f_faults, f_faults
+    log(f"[gateway] chunked {GW_CHUNK} vs unchunked, dense f32: "
+        f"{len(reqs) - len(f_diverged)} of {len(reqs)} requests equal bit "
+        f"for bit; divergences {f_diverged}, none above MARGIN_TOL "
+        f"{MARGIN_TOL} ({card})")
+
+    # (c) hot swaps: in place (run twice: the first warms the plans of the
+    # post-swap shapes), staged, refused
+    for attempt in ("warm-up", "measured"):
+        Recording, admitted = recording()
+        ts = tenants()
+        assert envelope_signature(ST.stack(neg)) == \
+            envelope_signature(ts[0].params)
+        misses = K.plan.cache_info().misses
+        gw = gateway_of(ts, cls=Recording)
+        swapped = served(f"swap inplace {attempt}", gw, trace(), [
+            SwapEvent(at_step=GW_SWAP_STEP, tenant="acme", sp=neg)])
+    ev = swapped.swaps[0]
+    assert ev["mode"] == "inplace" and ev["recompiles_after_swap"] == 0 \
+        and ts[0].compiles.n == 1, ev
+    new_plans = K.plan.cache_info().misses - misses
+    assert new_plans == 0, new_plans
+    after = [r for r in trace() if admitted[r.rid] is neg]
+    assert after, "no request was admitted after the swap"
+    ded = dedicated(neg, after)
+    for r in after:
+        assert (swapped.per_tenant["acme"].outputs[r.rid]
+                == ded.outputs[r.rid]).all(), f"{r.rid}: != new packing's"
+    log(f"[gateway] in-place swap at step {GW_SWAP_STEP}: {ev}; envelope "
+        f"signatures equal; new BSR launch plans over the run {new_plans}; "
+        f"{[r.rid for r in after]} admitted after it, tokens equal a "
+        f"dedicated server's on the new packing ({card})")
+    Recording, admitted = recording()
+    ts = tenants()
+    swapped = served("swap staged", gateway_of(ts, cls=Recording), trace(),
+                     [SwapEvent(at_step=GW_SWAP_STEP, tenant="bolt",
+                                sp=staged)])
+    ev = swapped.swaps[0]
+    assert ev["mode"] == "staged" and ev["tile"] == list(GW_STAGED_TILE) \
+        and ev["compiles_at_swap"] == 2 and ts[1].compiles.n == 2, ev
+    after = [r for r in trace() if admitted[r.rid] is staged]
+    assert after, "no request was admitted after the staged swap"
+    ded = dedicated(staged, after)
+    for r in after:
+        assert (swapped.per_tenant["bolt"].outputs[r.rid]
+                == ded.outputs[r.rid]).all(), f"{r.rid}: != staged packing's"
+    deeper = dataclasses.replace(cfg, n_layers=cfg.n_layers + 1)
+    try:
+        ts[0].hot_swap(sp, cfg_new=deeper)
+        raise AssertionError("a 5-layer swap was not refused")
+    except ValueError as e:
+        assert "KV geometry" in str(e), e
+    log(f"[gateway] staged swap: {ev}; {len(after)} requests admitted "
+        f"after it equal a dedicated server's on the {GW_STAGED_TILE} "
+        f"packing; a {deeper.n_layers}-layer config refused (KV geometry) "
+        f"({card})")
+
+    # (d) overload: a bounded queue and an unmeetable deadline
+    late = Request("acme-late", make_trace(Request, cfg.vocab)[2].prompt, 16,
+                   priority=1, tenant="acme", deadline=1e-9)
+    over = served("overload", gateway_of(tenants(),
+                                         max_pending=GW_MAX_PENDING),
+                  trace() + [late])
+    overflow = [e for e in over.shed if e["reason"] == "queue_overflow"]
+    assert len(overflow) == len(trace()) + 1 - GW_MAX_PENDING, over.shed
+    assert all(e["priority"] == 0 for e in overflow), over.shed
+    assert [e["rid"] for e in over.shed if e["reason"] == "deadline"] == [
+        "acme-late"], over.shed
+    assert sorted(over.per_tenant["acme"].outputs) == sorted(
+        r.rid for r in trace() if r.tenant == "acme")
+    assert over.admission["n_shed"] == len(over.shed)
+    log(f"[gateway] overload: max_pending {GW_MAX_PENDING} under "
+        f"{len(trace()) + 1} requests: shed "
+        f"{[(e['rid'], e['priority'], e['reason']) for e in over.shed]}; "
+        f"acme fully served ({card})")
+    log(f"[gateway] phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return counts
+
+
 def times_macro(torch, K, Q, sp, sxp, sharded):
     """Phase 8's B3 rows: the sharded call (a launch a macro, the gather,
     the un-permute; ``deploy.stacked_matmul``/``deployed_matmul`` with x
@@ -4303,7 +4747,7 @@ def main() -> int:
 
 
 def run_all(torch, search) -> int:
-    """Phases 1-13 (see the module docstring); ``search`` is the full-depth
+    """Phases 1-14 (see the module docstring); ``search`` is the full-depth
     schedule search's process, read by phase 9."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import quant as Q
@@ -4403,6 +4847,7 @@ def run_all(torch, search) -> int:
     macro_counts, macro_err, sharded = macro(torch, kern, cfg, sp, sxp,
                                              draft, scan, card)
     counts.update(macro_counts)
+    counts.update(gateway(torch, kern, cfg, sp, card))
     max_err.update(macro_err)
     max_err["bsr_matmul"] = max(max_err["bsr_matmul"], deploy_err)
 

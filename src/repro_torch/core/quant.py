@@ -5,10 +5,11 @@ eq.6  per-group tanh normalization:  W_hat = tanh(W) / max|tanh(W)| (per group)
 eq.7  BN fusion:  W_bar = clamp(gamma * W_hat / sqrt(var + eps), -1, 1)
 eq.8  symmetric weight quant:  W_q = round(W_bar * (2^{b-1} - 1)) / 2^{b-1}
 
-The quantizers here are the plain forms (no straight-through estimator);
-training runs eqs. 5, 7 and 8 on the fake-quant kernel, whose autograd
-Function carries the reference's straight-through gradient
-(``kernels/fake_quant.py``). ``torch.round`` rounds half to even, as
+The MARS quantizers here are the plain forms (no straight-through
+estimator); training runs eqs. 5, 7 and 8 on the fake-quant kernel, whose
+autograd Function carries the reference's straight-through gradient
+(``kernels/fake_quant.py``). The DoReFa baseline's quantizers carry their
+own, ``x + (round(x) - x).detach()`` (the reference's ``round_ste``). ``torch.round`` rounds half to even, as
 ``jnp.round`` does, and every step stays in the input's dtype. The BN
 helpers at the end are differentiable, as the reference's are.
 """
@@ -106,6 +107,36 @@ def mars_weight_quant(w: torch.Tensor, bits: int, group_size: int = 16,
     w_hat = tanh_normalize(w, group_size)
     return quantize_weight_symmetric(fuse_bn_scale(w_hat, gamma, var, eps),
                                      bits)
+
+
+# ---------------------------------------------------------------------------
+# DoReFa baseline (the paper's Table III comparison; its ref [25])
+# ---------------------------------------------------------------------------
+
+
+def _round_ste(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even forward, identity gradient (straight-through)."""
+    return x + (torch.round(x) - x).detach()
+
+
+def dorefa_quantize_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """DoReFa-Net weight quantizer:
+    w_q = 2 Q_k(tanh(w) / (2 max|tanh(w)|) + 0.5) - 1, straight-through."""
+    if bits >= 32:
+        return w
+    t = torch.tanh(w)
+    t = t / (2.0 * t.abs().amax() + 1e-12) + 0.5
+    levels = 2.0 ** bits - 1.0
+    return 2.0 * (_round_ste(t * levels) / levels) - 1.0
+
+
+def dorefa_quantize_activation(a: torch.Tensor, bits: int) -> torch.Tensor:
+    """DoReFa activation quantizer: Q_k(clip(a, 0, 1)), straight-through;
+    the clip's gradient is ``jnp.clip``'s (:func:`clip`)."""
+    if bits >= 32:
+        return a
+    levels = 2.0 ** bits - 1.0
+    return _round_ste(clip(a, 0.0, 1.0) * levels) / levels
 
 
 # ---------------------------------------------------------------------------

@@ -62,23 +62,38 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
       --smoke --engine legacy --batch 4 --prompt-len 16 --new-tokens 32
 
-The subset of ``repro.launch.serve`` whose modules are ported, with the
-same defaults and the same numpy-seeded traces and prompts. Weights come
-from a ``torch.Generator`` seeded by ``--seed`` (other numbers than
-``jax.random``'s), or from ``--artifact``. Not ported yet, so argparse
-refuses them: ``--parity-check``, ``--profile``, ``--gateway``,
-``--gateway-parity-check``, ``--prefill-chunk``, ``--prefill-device``,
-``--max-backlog-s``, ``--max-pending``. ``--mesh macro=N`` puts its N
-macros on ``--device``. Beside the reference's flags: ``--device``
-(default cuda). ``--autotune`` times on
-that device and keys its cache ``torch-cuda`` or ``torch-cpu``, so a
-cache the reference wrote reads as a miss.
+  # a torch.profiler Chrome trace of the measured run, and the
+  # speculative run audited against target-only scan decode
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --compressed --tile 16x16 --runtime scan --profile /tmp/serve-prof
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --compressed --tile 16x16 --spec draft=layerskip --parity-check
+
+  # multi-tenant gateway: several tenants (artifacts or seeded inits)
+  # behind ONE shared KV pool on the device, priced admission, optional
+  # mid-run hot-swaps; see the README's "Multi-tenant gateway" for
+  # tenants.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
+      --gateway tenants.json --gateway-parity-check
+
+``repro.launch.serve``'s flags, with the same defaults and the same
+numpy-seeded traces and prompts. Weights come from a ``torch.Generator``
+seeded by ``--seed`` (other numbers than ``jax.random``'s), or from
+``--artifact``. ``--mesh macro=N`` puts its N macros on ``--device``;
+``--prefill-device`` takes a CUDA device index (only 0, the pool's own,
+on the CPU). ``--profile DIR`` writes a ``torch.profiler`` Chrome trace
+(CPU activity, and CUDA on the card) into DIR. Beside the reference's
+flags: ``--device`` (default cuda). ``--autotune`` times on that device
+and keys its cache ``torch-cuda`` or ``torch-cpu``, so a cache the
+reference wrote reads as a miss.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -481,8 +496,18 @@ def _batch(args, cfg, init, dev):
     if metrics is not None:
         metrics.clear()
     srv.timer.clear()
-    rep = srv.run(trace())
+    with _profiled(args.profile, dev):
+        rep = srv.run(trace())
     out = rep.to_json()
+    if spec_cfg is not None and args.parity_check:
+        # greedy-exactness audit: target-only scan decode over the same
+        # trace must emit the same tokens
+        ref = BatchServer(cfg, sp, ServeConfig(seed=args.seed), bcfg,
+                          continuous=(args.engine == "batch"), engine="scan",
+                          device=dev, mesh=mesh).run(trace())
+        out["tokens_match_target"] = bool(all(
+            np.array_equal(rep.outputs[r.rid], ref.outputs[r.rid])
+            for r in trace()))
     if args.prefix_parity_check and rep.prefix is not None:
         # sharing-exactness audit: the same engine with the prefix cache
         # OFF must emit identical tokens over the same trace
@@ -522,15 +547,173 @@ def _batch(args, cfg, init, dev):
         with open(args.metrics_out, "w") as f:
             json.dump(rep.metrics or {}, f, indent=1)
         print(f"metrics: snapshot -> {args.metrics_out}")
+    if args.profile:
+        print(f"profile: torch.profiler trace -> {args.profile}")
+    return rep
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: str, dev: torch.device):
+    """``torch.profiler`` around the measured run (CPU activity, and CUDA
+    on the card), its Chrome trace written to ``out_dir/trace.json``; a
+    no-op without ``out_dir``."""
+    if not out_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+def _init_params(cfg, seed: int, dev: torch.device):
+    fns = registry.model_fns(cfg)
+    return fns.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+
+
+def _tenant_cfg_sp(entry, args, dev):
+    """One tenants.json entry -> (cfg, ServingParams) on ``dev``. An
+    ``artifact`` boots the stored packing (checked against the entry's
+    arch and tile); else a seeded init is served dense or uniformly
+    compressed."""
+    arch = entry.get("arch") or args.arch
+    if not arch:
+        raise SystemExit(
+            f"tenant {entry.get('name')!r}: no 'arch' in tenants.json and "
+            "no --arch fallback")
+    cfg = (registry.get_smoke_config(arch, dtype=args.dtype) if args.smoke
+           else registry.get_config(arch, dtype=args.dtype))
+    tile = _parse_tile(entry.get("tile", ""))
+    if entry.get("artifact"):
+        sp, _, _ = deployed.load_artifact_tiers(
+            entry["artifact"], arch=cfg.name, tile=tile, device=dev)
+        print(f"gateway: tenant {entry['name']} loaded artifact "
+              f"{entry['artifact']} (arch={cfg.name})")
+        return cfg, sp
+    params = _init_params(cfg, int(entry.get("seed", 0)), dev)
+    if entry.get("compressed"):
+        sp = deployed.compress(
+            cfg, params,
+            target_sparsity=float(entry.get("target_sparsity", 0.5)),
+            tile=tile if tile else (16, 16), uniform=True)
+    else:
+        sp = deployed.from_params(cfg, params)
+    return cfg, sp
+
+
+def _gateway(args, dev):
+    """Multi-tenant serving: tenants.json -> one Gateway run (and, with
+    --gateway-parity-check, each tenant's tokens against a dedicated
+    single-tenant scan BatchServer). Returns the GatewayReport."""
+    from ..gateway import (AdmissionController, Gateway, GatewayConfig,
+                           SwapEvent, TenantRuntime, TenantSLO)
+    from ..sched.pricing import Pricer
+
+    with open(args.gateway) as f:
+        spec = json.load(f)
+    entries = spec.get("tenants")
+    if not entries:
+        raise SystemExit(f"{args.gateway}: no 'tenants' list")
+    tenants, swaps, traces = [], [], {}
+    for i, entry in enumerate(entries):
+        name = entry.get("name")
+        if not name:
+            raise SystemExit(f"{args.gateway}: tenants[{i}] has no 'name'")
+        cfg, sp = _tenant_cfg_sp(entry, args, dev)
+        tenants.append(TenantRuntime(
+            name, cfg, sp, priority=int(entry.get("priority", 0)),
+            slo=TenantSLO.from_json(entry.get("slo")),
+            sparsity=float(entry.get("sparsity", 0.0)),
+            artifact=entry.get("artifact", "")))
+        n_req = int(entry.get("requests", args.requests))
+        reqs = synthetic_trace(cfg, n_req, args.prompt_len, args.new_tokens,
+                               seed=args.seed + i)
+        deadline_s = entry.get("deadline_s")
+        traces[name] = [dataclasses.replace(
+            r, rid=f"{name}-{r.rid}", tenant=name,
+            priority=int(entry.get("priority", 0)),
+            deadline=(r.arrival + float(deadline_s)
+                      if deadline_s is not None else None))
+            for r in reqs]
+        hs = entry.get("hot_swap")
+        if hs:
+            if hs.get("artifact"):
+                sp2, _, _ = deployed.load_artifact_tiers(
+                    hs["artifact"], arch=cfg.name, device=dev)
+            else:
+                sp2 = _tenant_cfg_sp(
+                    {**entry, "seed": hs.get("reseed", 1),
+                     "artifact": "", "tile": hs.get("tile",
+                                                    entry.get("tile", ""))},
+                    args, dev)[1]
+            swaps.append(SwapEvent(at_step=int(hs.get("at_step", 1)),
+                                   tenant=name, sp=sp2))
+    gspec = spec.get("gateway", {})
+    gcfg = GatewayConfig(
+        n_slots=int(gspec.get("n_slots", args.slots)),
+        block_size=int(gspec.get("block_size", args.block_size)),
+        n_blocks=int(gspec.get("n_blocks", args.kv_blocks)),
+        prefill_chunk=int(gspec.get("prefill_chunk", args.prefill_chunk)),
+        prefill_device=gspec.get("prefill_device", args.prefill_device),
+        max_backlog_s=float(gspec.get("max_backlog_s", args.max_backlog_s)),
+        max_pending=(int(gspec["max_pending"]) if "max_pending" in gspec
+                     else args.max_pending))
+    controller = AdmissionController(pricer=Pricer(),
+                                     max_backlog_s=gcfg.max_backlog_s)
+    gw = Gateway(tenants, gcfg, ServeConfig(seed=args.seed),
+                 controller=controller, device=dev)
+    all_reqs = [r for reqs in traces.values() for r in reqs]
+    print(f"gateway: {len(tenants)} tenant(s) "
+          f"({', '.join(t.name for t in tenants)}), {len(all_reqs)} "
+          f"request(s), one shared pool of {gcfg.n_blocks} blocks")
+    rep = gw.run(all_reqs, swaps=swaps)
+    for ev in rep.shed:
+        print(f"gateway: shed rid={ev['rid']} tenant={ev['tenant']} "
+              f"priority={ev['priority']} reason={ev['reason']}")
+    out = rep.to_json()
+    if args.gateway_parity_check:
+        # per-tenant exactness audit: each tenant's gateway tokens against
+        # a dedicated single-tenant BatchServer over the same requests
+        swapped = {ev.tenant for ev in swaps}
+        for t in tenants:
+            if t.name in swapped:
+                # pre-swap tokens came from weights the tenant no longer
+                # holds - a re-serve afterwards cannot reproduce them
+                print(f"gateway: tenant={t.name} "
+                      "tokens_match_dedicated=skipped(hot-swap)")
+                continue
+            served = rep.per_tenant[t.name].outputs
+            bcfg = BatchConfig(n_slots=gcfg.n_slots,
+                               block_size=gcfg.block_size,
+                               n_blocks=gcfg.n_blocks)
+            ded = BatchServer(t.cfg, t.sp, ServeConfig(seed=args.seed),
+                              bcfg, engine="scan", device=dev).run(
+                [Request(r.rid, r.prompt, r.max_new_tokens)
+                 for r in traces[t.name] if r.rid in served])
+            match = bool(all(np.array_equal(served[rid], o)
+                             for rid, o in ded.outputs.items()))
+            out.setdefault("parity", {})[t.name] = match
+            print(f"gateway: tenant={t.name} "
+                  f"tokens_match_dedicated={match}")
+    print(json.dumps(out, indent=1))
     return rep
 
 
 def main(argv=None):
     """Parse ``argv`` and serve. Returns the measured ``ServeReport``
-    (``--engine batch|static``) or the generated (batch, new_tokens) array
-    (``--engine legacy``)."""
+    (``--engine batch|static``), the generated (batch, new_tokens) array
+    (``--engine legacy``) or the ``GatewayReport`` (``--gateway``)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, help="registry architecture")
+    ap.add_argument("--arch", default="",
+                    help="registry architecture (required unless --gateway "
+                    "names per-tenant arches)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--engine", choices=["batch", "static", "legacy"],
                     default="batch",
@@ -552,6 +735,10 @@ def main(argv=None):
                     "(layerskip knob: the draft runs the nnz-ranked top keep "
                     "fraction of the TARGET envelope's sublayers - no "
                     "second packing), adaptive_k=0|1")
+    ap.add_argument("--parity-check", action="store_true",
+                    help="with --spec: also run target-only scan decode "
+                    "over the trace and report tokens_match_target (the "
+                    "greedy exactness contract)")
     ap.add_argument("--artifact", default="",
                     help="serving-artifact directory: boot from it when it "
                     "exists (no re-packing), else pack once and save there")
@@ -573,6 +760,9 @@ def main(argv=None):
                     help="write the measured run's metrics snapshot "
                     "(counters/gauges/phase histograms + fenced dispatch "
                     "table) as JSON")
+    ap.add_argument("--profile", default="",
+                    help="directory for a torch.profiler Chrome trace of "
+                    "the measured run (CPU activity, and CUDA on the card)")
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
                     help="serve a prefix-skewed trace: 90%% of requests "
                     "share an N-token system prompt (aligned up to a block "
@@ -588,6 +778,29 @@ def main(argv=None):
                     "over N macros on --device (balanced by surviving "
                     "blocks) and the paged-KV views by head where N divides "
                     "the KV heads; the tokens do not change")
+    ap.add_argument("--gateway", default="", metavar="TENANTS_JSON",
+                    help="multi-tenant gateway mode: serve the tenants "
+                    "described in TENANTS_JSON behind one shared KV pool "
+                    "with simulator-priced admission (see the README's "
+                    "'Multi-tenant gateway' for the schema)")
+    ap.add_argument("--gateway-parity-check", action="store_true",
+                    help="with --gateway: re-serve each tenant's requests "
+                    "on a dedicated single-tenant scan server and report "
+                    "tokens_match_dedicated")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="gateway: advance pending prefills at most N "
+                    "tokens per step, interleaved with decode rounds "
+                    "(0 = whole prompt at admission)")
+    ap.add_argument("--prefill-device", type=int, default=None,
+                    help="gateway: run the prefill dispatches on this CUDA "
+                    "device index (prefill/decode disaggregation)")
+    ap.add_argument("--max-backlog-s", type=float, default=float("inf"),
+                    help="gateway: shed (lowest-priority-first) once the "
+                    "simulator-predicted backlog exceeds this many seconds")
+    ap.add_argument("--max-pending", type=int, default=None,
+                    help="gateway: bound the request queue; overflow sheds "
+                    "the lowest-priority pending request (counted, never "
+                    "silent)")
     ap.add_argument("--target-sparsity", type=float, default=0.5)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
@@ -603,13 +816,16 @@ def main(argv=None):
                     help="cuda (default; raises without a GPU) or cpu (the "
                     "kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
+    if not args.arch and not args.gateway:
+        ap.error("--arch is required (unless --gateway names per-tenant "
+                 "arches)")
 
     dev = resolve_device(args.device)
+    if args.gateway:
+        return _gateway(args, dev)
     cfg = (registry.get_smoke_config(args.arch, dtype=args.dtype)
            if args.smoke else registry.get_config(args.arch, dtype=args.dtype))
-    fns = registry.model_fns(cfg)
-    init = lambda: fns.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    init = lambda: _init_params(cfg, args.seed, dev)
 
     use_legacy = args.engine == "legacy"
     if not use_legacy and cfg.family not in ("dense", "moe"):

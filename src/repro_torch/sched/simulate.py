@@ -34,10 +34,11 @@ would pin anyway.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import heapq
 import itertools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 from ..core.perf_model import DEFAULT_HW, ConvLayer, HardwareConfig
 
@@ -112,8 +113,9 @@ class _Core:
 
     def __init__(self, cid: int):
         self.cid = cid
-        self.reload_q: List[_Wave] = []  # FIFO awaiting the write port
-        self.loaded_q: List[Tuple[_Wave, float]] = []  # (wave, load_done)
+        # FIFOs (deques: a full-width LM queues ~10^6 waves)
+        self.reload_q: Deque[_Wave] = collections.deque()  # for the port
+        self.loaded_q: Deque[Tuple[_Wave, float]] = collections.deque()
         self.reload_busy = False
         self.compute_busy = False
         self.buffers_free = 2  # ping-pong macros not holding live weights
@@ -205,7 +207,7 @@ def simulate(graph: LayerGraph | Sequence[ConvLayer],
         """Start whatever this core can legally start at ``now``."""
         # reload: port idle + a free macro buffer + head-of-queue exists
         if (not core.reload_busy and core.buffers_free > 0 and core.reload_q):
-            w = core.reload_q.pop(0)
+            w = core.reload_q.popleft()
             core.reload_busy = True
             core.buffers_free -= 1
             t0 = max(now, core.t_reload_free)
@@ -220,7 +222,7 @@ def simulate(graph: LayerGraph | Sequence[ConvLayer],
         if not core.compute_busy and core.loaded_q:
             w, t_loaded = core.loaded_q[0]
             if w.layer in compute_ready:
-                core.loaded_q.pop(0)
+                core.loaded_q.popleft()
                 core.compute_busy = True
                 t0 = max(now, core.t_compute_free, t_loaded)
                 t1 = t0 + max(w.compute, w.fm)

@@ -56,13 +56,18 @@ def kv_view_spec(cfg: ModelConfig, mesh) -> Optional[tuple]:
 class Request:
     """One generation request. ``arrival`` is seconds relative to the start
     of the serve loop (0 = already waiting); higher ``priority`` admits
-    first, equal priorities keep FIFO."""
+    first, equal priorities keep FIFO. ``deadline`` is an absolute
+    trace-clock second past which serving the request is pointless (the
+    gateway sheds it instead of admitting it); ``tenant`` names its gateway
+    tenant ("" = single-tenant serving)."""
 
     rid: str
     prompt: np.ndarray  # (S,) int32 token ids
     max_new_tokens: int
     arrival: float = 0.0
     priority: int = 0
+    deadline: Optional[float] = None
+    tenant: str = ""
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -70,24 +75,66 @@ class Request:
             raise ValueError(f"{self.rid}: empty prompt")
         if self.max_new_tokens < 1:
             raise ValueError(f"{self.rid}: max_new_tokens must be >= 1")
+        if self.deadline is not None and self.deadline < self.arrival:
+            raise ValueError(f"{self.rid}: deadline {self.deadline} before "
+                             f"arrival {self.arrival}")
 
 
 class RequestQueue:
     """Two-stage intake: a time heap for not-yet-arrived requests and a
     priority heap for ready ones. ``requeue`` puts a popped-but-unadmitted
-    request back at the FRONT of its priority class."""
+    request back at the FRONT of its priority class.
 
-    def __init__(self, requests: Optional[List[Request]] = None):
+    ``max_pending`` bounds the queued count: a push past it evicts the
+    lowest-priority request, the newest within that priority (possibly the
+    incoming one), and RETURNS it instead of dropping it silently, counting
+    ``n_shed``; the gateway mirrors that into ``gateway_shed_total``."""
+
+    def __init__(self, requests: Optional[List[Request]] = None,
+                 max_pending: Optional[int] = None):
         self._arrivals: list = []  # (arrival, seq, req)
         self._ready: list = []     # (-priority, seq, req)
         self._seq = 0
         self._front = -1
+        self.max_pending = max_pending
+        self.n_shed = 0
         for r in requests or []:
             self.push(r)
 
-    def push(self, req: Request) -> None:
+    def push(self, req: Request) -> Optional[Request]:
+        """Queue a request; returns the request an overflowing push sheds
+        (None when everything fits)."""
+        shed = None
+        if self.max_pending is not None and len(self) >= self.max_pending:
+            shed = self._evict_for(req)
+            if shed is req:
+                self.n_shed += 1
+                return shed
         heapq.heappush(self._arrivals, (req.arrival, self._seq, req))
         self._seq += 1
+        if shed is not None:
+            self.n_shed += 1
+        return shed
+
+    def _evict_for(self, incoming: Request) -> Request:
+        """The overflow victim: lowest priority first, newest within a
+        priority (front-of-class requeues carry negative sequence numbers,
+        so they count as the oldest, the most protected)."""
+        victim_key, victim = (incoming.priority, -self._seq), incoming
+        for heap in (self._arrivals, self._ready):
+            for _, seq, req in heap:
+                key = (req.priority, -seq)
+                if key < victim_key:
+                    victim_key, victim = key, req
+        if victim is not incoming:
+            for heap in (self._arrivals, self._ready):
+                for i, entry in enumerate(heap):
+                    if entry[2] is victim:
+                        heap[i] = heap[-1]
+                        heap.pop()
+                        heapq.heapify(heap)
+                        return victim
+        return victim
 
     def requeue(self, req: Request) -> None:
         heapq.heappush(self._ready, (-req.priority, self._front, req))
@@ -337,17 +384,21 @@ class PagedKVCache:
 
         return _g(self.pool_k), _g(self.pool_v)
 
-    def write_coords(self, positions: List[Optional[int]]
+    def write_coords(self, positions: List[Optional[int]],
+                     slots: Optional[List[int]] = None
                      ) -> Tuple[List[int], List[int]]:
-        """Physical (block, offset) per lane for a decode-step write; idle
-        lanes (None) target the scratch block. Copy-on-write fires here."""
-        pb = [0] * self.n_slots
-        off = [0] * self.n_slots
-        for s, pos in enumerate(positions):
+        """Physical (block, offset) per lane for a decode-step write: lane
+        r writes ``slots[r]`` (default: lane r is slot r) at
+        ``positions[r]``; idle lanes (None) target the scratch block.
+        Copy-on-write fires here."""
+        sl = range(len(positions)) if slots is None else slots
+        pb = [0] * len(positions)
+        off = [0] * len(positions)
+        for r, (s, pos) in enumerate(zip(sl, positions)):
             if pos is None:
                 continue
-            pb[s] = self._ensure_owned(s, pos // self.block_size)
-            off[s] = pos % self.block_size
+            pb[r] = self._ensure_owned(s, pos // self.block_size)
+            off[r] = pos % self.block_size
         return pb, off
 
     def write_token(self, pb: List[int], off: List[int],

@@ -123,6 +123,21 @@ class PrefixTrie:
             freed += 1
         return freed
 
+    def clear(self) -> int:
+        """Drop every registered prefix, releasing the trie's reference on
+        each block (a block a slot still holds stays live). Returns the
+        blocks released; they count as evicted."""
+        n = 0
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            self.kv.release(node.block)
+            n += 1
+        self._root = _Node(None, None, -1)
+        self.n_evicted += n
+        return n
+
     def stats(self) -> dict:
         return {
             "lookups": self.n_lookups,

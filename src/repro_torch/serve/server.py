@@ -86,6 +86,8 @@ class ServeReport:
     metrics: Optional[dict] = None  # obs snapshot (instrumented runs only)
     prefix: Optional[dict] = None
     n_slots: int = 1
+    # the gateway tenant this report covers ("" = a single-tenant run)
+    tenant: str = ""
 
     @property
     def tokens_per_s(self) -> float:
@@ -107,6 +109,7 @@ class ServeReport:
                    for t, w in zip(self.ttft_s, self.queue_wait_s)]
         pct = lambda xs: {k: round(v, 5) for k, v in _percentiles(xs).items()}
         out = {
+            **({"tenant": self.tenant} if self.tenant else {}),
             "n_requests": self.n_requests,
             "total_tokens": self.total_tokens,
             "wall_s": round(self.wall_s, 4),

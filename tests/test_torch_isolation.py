@@ -97,3 +97,13 @@ def test_macro_sharding_modules_are_walked():
     text = open(os.path.join(PKG_DIR, "kernels", "cim_bsr_matmul.py")).read()
     for entry in ("def bsr_matmul_sharded(", "def bsr_matmul_stacked_sharded("):
         assert entry in text, entry
+
+
+def test_gateway_slice_modules_are_walked():
+    """The import walk above reaches the gateway slice's modules: the
+    tenant runtime, admission, the gateway loop and the bench history."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    for mod in ("gateway", "gateway.tenant", "gateway.admission",
+                "gateway.gateway", "obs.history"):
+        assert f"repro_torch.{mod}" in names, mod

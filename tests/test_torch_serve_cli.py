@@ -10,6 +10,7 @@ port's ``main`` boots that artifact on the CPU with every runtime and
 engine and must give the same greedy tokens.
 """
 import json
+import os
 import re
 
 import jax
@@ -310,13 +311,111 @@ def test_spec_run_persists_acceptance_and_auto_reads_it(tmp_path, capsys):
             if r["family"] == "reprune"} == {"calibrated"}
 
 
-@pytest.mark.parametrize("flag", [["--profile", "p"], ["--max-pending", "4"],
-                                  ["--gateway", "t.json"],
-                                  ["--parity-check"]])
-def test_unported_flag_exits_2(flag):
+def _tenants_json(tmp_path, **gateway):
+    """Two tenants of the smoke yi-6b, packed at 16x16 from seeds 0 and 1,
+    priorities 1 and 0, three requests each."""
+    spec = {"tenants": [
+        {"name": "acme", "arch": "yi-6b", "seed": 0, "compressed": True,
+         "tile": "16x16", "priority": 1, "requests": 3},
+        {"name": "bolt", "arch": "yi-6b", "seed": 1, "compressed": True,
+         "tile": "16x16", "priority": 0, "requests": 3}],
+        "gateway": gateway}
+    path = tmp_path / "tenants.json"
+    path.write_text(json.dumps(spec))
+    return str(path)
+
+
+GATEWAY = ["--smoke", "--new-tokens", "4", "--device", "cpu"]
+SERVE = ["--arch", "yi-6b", "--smoke", "--compressed", "--tile", "16x16",
+         "--requests", "3", "--new-tokens", "4", "--device", "cpu"]
+
+
+def _flag_profile(tmp_path):
+    out = str(tmp_path / "prof")
+    return SERVE + ["--runtime", "scan", "--profile", out], out
+
+
+def _flag_max_pending(tmp_path):
+    return ["--gateway", _tenants_json(tmp_path), "--max-pending", "4",
+            *GATEWAY], None
+
+
+def _flag_gateway(tmp_path):
+    return ["--gateway", _tenants_json(tmp_path), *GATEWAY], None
+
+
+def _flag_parity_check(tmp_path):
+    return SERVE + ["--spec", "draft=layerskip,keep=0.5,k=2",
+                    "--parity-check"], None
+
+
+@pytest.mark.parametrize("flag", [_flag_profile, _flag_max_pending,
+                                  _flag_gateway, _flag_parity_check],
+                         ids=["profile", "max-pending", "gateway",
+                              "parity-check"])
+def test_reference_flag_runs(flag, tmp_path, capsys):
+    """Each of the reference's flags that argparse refused before the
+    gateway slice, through ``main`` on the CPU, does what the reference's
+    does: --profile writes a torch.profiler Chrome trace, --max-pending
+    sheds the lowest priority (counted), --gateway serves both tenants,
+    --parity-check audits the spec run against target-only scan."""
+    argv, prof = flag(tmp_path)
+    rep = TSERVE.main(argv)
+    out = capsys.readouterr().out
+    if flag is _flag_profile:
+        assert f"profile: torch.profiler trace -> {prof}" in out
+        with open(os.path.join(prof, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        # the measured run's operators (on the card, its kernels too)
+        assert any(str(e.get("name", "")).startswith("aten::")
+                   for e in events)
+    elif flag is _flag_max_pending:
+        sheds = re.findall(r"gateway: shed rid=(\S+) tenant=(\S+) "
+                           r"priority=(\d+) reason=(\S+)", out)
+        assert len(sheds) == 2 == rep.admission["n_shed"]
+        assert {(t, p, r) for _, t, p, r in sheds} == {
+            ("bolt", "0", "queue_overflow")}
+        assert len(rep.per_tenant["acme"].outputs) == 3
+    elif flag is _flag_gateway:
+        assert sorted(rep.per_tenant) == ["acme", "bolt"]
+        assert all(len(r.outputs) == 3 for r in rep.per_tenant.values())
+        assert '"n_shed": 0' in out
+    else:
+        assert '"tokens_match_target": true' in out
+
+
+def test_gateway_parity_check_two_tenants(tmp_path, capsys):
+    """--gateway with --gateway-parity-check: both tenants' tokens equal a
+    dedicated scan server's; --arch is not needed with --gateway (and is
+    without it)."""
+    rep = TSERVE.main(["--gateway", _tenants_json(tmp_path),
+                       "--gateway-parity-check", *GATEWAY])
+    out = capsys.readouterr().out
+    for name in ("acme", "bolt"):
+        assert f"gateway: tenant={name} tokens_match_dedicated=True" in out
+    assert rep.tenant_meta["acme"]["compiles"] == 1
     with pytest.raises(SystemExit) as e:
-        TSERVE.main(["--arch", "yi-6b", "--smoke", "--device", "cpu", *flag])
+        TSERVE.main(["--smoke", "--device", "cpu"])
     assert e.value.code == 2
+
+
+def test_gateway_prefill_chunk(tmp_path, capsys):
+    """--prefill-chunk 4 (and the tenants.json knob) serves the same tokens
+    as the unchunked gateway, and the parity audit holds."""
+    path = _tenants_json(tmp_path)
+    whole = TSERVE.main(["--gateway", path, *GATEWAY])
+    chunked = TSERVE.main(["--gateway", path, "--prefill-chunk", "4",
+                           "--gateway-parity-check", *GATEWAY])
+    assert capsys.readouterr().out.count("tokens_match_dedicated=True") == 2
+    knob = TSERVE.main(["--gateway", _tenants_json(tmp_path,
+                                                   prefill_chunk=4),
+                        *GATEWAY])
+    for name in ("acme", "bolt"):
+        for rid, toks in whole.per_tenant[name].outputs.items():
+            np.testing.assert_array_equal(
+                chunked.per_tenant[name].outputs[rid], toks)
+            np.testing.assert_array_equal(
+                knob.per_tenant[name].outputs[rid], toks)
 
 
 def test_default_device_raises_without_gpu(monkeypatch):
