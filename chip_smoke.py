@@ -63,7 +63,16 @@ needed. Phases (any failure exits non-zero):
               GM_EDGE_ROWS, a row-block and tile edge, at GM_EDGE_SHAPES),
               beside other rows and moved to another row index; the
               decode-attention kernel at
-              stablelm-12b's dh 160 and grok-1's 6 heads a kv head;
+              stablelm-12b's dh 160 and grok-1's 6 heads a kv head; for
+              phase 15: ssd_intra_chunk at zamba2-1.2b's serving shape
+              (ZAMBA_SSD_SHAPE), the decode-attention kernel at dh 64
+              without grouping (whisper-tiny's 6 heads, zamba2's 32), at
+              llava-next-34b's 7 heads of 128 a kv head (LLAVA_DA_VIEWS
+              too) and in the ring mapping over zamba2's 4096-slot ring
+              (positions before, at and past the wrap), the block-sparse
+              kernel at
+              llava-next-34b's w_gate and w_down at decode rows and its
+              LLAVA_ROWS prefill rows;
   3. serve yi-6b - yi-6b at full width in bf16, depth cut to 4 layers,
               random weights from a seed, compressed (uniform 128x128 tile,
               60% tile sparsity) and served by BatchServer on the scan and
@@ -130,7 +139,7 @@ needed. Phases (any failure exits non-zero):
   8. times  - kernel, bound, plain-version and library times per shape
               (the block-sparse kernel at all six yi-6b rows and at w_gate
               and w_down's decode and prefill rows at phase 9's tiles: the
-              full-depth schedule's, autotune's winner, 16x16 and 8x8; the
+              schedule search's, autotune's winner, 16x16 and 8x8; the
               decode-attention kernel at decode and verify rows over
               DA_VIEWS and the prefix-suffix row), and the per-launch
               device time of the block-sparse, fake_quant, ssd_intra and
@@ -142,11 +151,16 @@ needed. Phases (any failure exits non-zero):
               by one library reduction beside it; the sharded call of
               phase 13 (a launch a macro, the gather, the un-permute) at
               w_gate and w_down decode and prefill and the head's decode,
-              beside the unsharded kernel on the same weights;
+              beside the unsharded kernel on the same weights; and
+              phase 15's shapes (times_families): ssd_intra_chunk at
+              zamba2's serving shape, the decode-attention kernel at
+              whisper's decode and zamba2's ring, the block-sparse kernel
+              at llava's w_gate and w_down decode and prefill rows;
   9. sched  - run after phase 6 (phase 8 times its tiles): the MARS
               schedule search at full width. default_schedule over
-              full-depth yi-6b in a process of its own, started before
-              the build (its seconds and tile); the CLI in-process at
+              full-width yi-6b cut to SCHED_SEARCH_LAYERS layers in a
+              process of its own, started before the build (its seconds
+              and tile); the CLI in-process at
               full width cut to SCHED_LAYERS layers: --autotune
               SCHED_TOPN on a fresh pack (the measured table, the winner
               never slower than the simulated pick, measure_tile's
@@ -262,6 +276,31 @@ needed. Phases (any failure exits non-zero):
               load: only priority 0 shed for queue_overflow, acme fully
               served, an unmeetable deadline shed; each tenant's tokens/s,
               TTFT and decode-step p50.
+ 15. families - run after phase 14: the last three families through
+              serve.Engine, each run with the launch counts at 0 and read
+              after. (a) zamba2-1.2b (hybrid) at full width and depth,
+              bf16 QAT w8a8, ZAMBA_BATCH prompts of ZAMBA_PROMPT tokens,
+              ZAMBA_NEW new, the shared block's 4096-slot KV ring
+              wrapping during decode: launch counts exact (ssd_intra_chunk
+              a mamba block a prefill, fake_quant on every projection, the
+              decode-attention kernel for the shared block, 6 a step);
+              fake_quant swapped, the generate bit for bit; every kernel
+              swapped, each block within LAYER_ULPS; f32 dense, kernel vs
+              plain path within MAMBA_F32_TOL and tokens by the margin
+              rule, and a step past the wrap against a from-scratch
+              windowed prefill. (b) whisper-tiny (encdec) at full size,
+              bf16 QAT w8a8, WHISPER_BATCH requests of 1500 stub frames:
+              the same checks (the cross K/V and the tied head counted).
+              (c) llava-next-34b (vlm) at full width cut to LLAVA_LAYERS
+              layers, packed at TILE/SPARSITY with mm_proj in float, 576
+              stub patches a request, on the loop and scan runtimes:
+              launch counts exact, loop = scan bit for bit, the
+              block-sparse and fake_quant kernels swapped bit for bit,
+              every kernel swapped (first divergences printed), in f32
+              dense the attention kernel vs plain by the margin rule over
+              every step, and save_artifact -> load_artifact serving the
+              same tokens. Tokens/s, prefill seconds and decode-step p50
+              of each; at most FAMILIES_BUDGET_S seconds.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -458,14 +497,15 @@ CLI_SPEC = ["--runtime", "scan", "--spec",
             f"draft=layerskip,keep={SPEC_KEEP},k={SPEC_K}"]
 # the sched phase (9): the CLI's runs at full width cut to SCHED_LAYERS
 # layers, packed by --autotune SCHED_TOPN or the schedule search (no
-# --tile); the full-depth search in its own process must end within
-# SEARCH_TIMEOUT s of being waited for; executor.verify_layer holds the
+# --tile); the search over SCHED_SEARCH_LAYERS layers in its own process
+# must end within SEARCH_TIMEOUT s of being waited for; executor.verify_layer holds the
 # kernel to the dense oracle within VERIFY_TOL x max |oracle| (eq. 5 x and
 # int8 levels are exact on both sides; f32 sums of 4096-11008 terms in
 # another order, as phase 2's 1e-5)
 CLI_SCHED = ["--arch", "yi-6b", "--dtype", "bfloat16", "--compressed",
              "--target-sparsity", str(SPARSITY)] + CLI_BATCH
 SCHED_LAYERS = 4
+SCHED_SEARCH_LAYERS = 8
 SCHED_TOPN = 3
 SEARCH_TIMEOUT = 900
 VERIFY_TOL = 1e-5
@@ -555,6 +595,37 @@ CLI_PROFILE = ["--requests", "4", "--prompt-len", "128", "--new-tokens",
 CLI_GATEWAY = ["--dtype", "bfloat16", "--requests", "4", "--prompt-len",
                "128", "--new-tokens", "32", "--slots", "4", "--block-size",
                "16", "--kv-blocks", "256"]
+
+# phase 15 (families). zamba2-1.2b at full width and depth, bf16, QAT
+# w8a8: ZAMBA_BATCH prompts of ZAMBA_PROMPT tokens, ZAMBA_NEW new, so the
+# shared block's KV ring (the 4096 window) wraps at decode step 4096 -
+# ZAMBA_PROMPT; its f32 dense runs decode ZAMBA_F32_NEW steps, past the
+# wrap, the last held against a from-scratch windowed prefill
+ZAMBA_BATCH = 2
+ZAMBA_PROMPT = 4000
+ZAMBA_NEW = 128
+ZAMBA_F32_NEW = 100
+# whisper-tiny at full size, bf16, QAT w8a8: WHISPER_BATCH requests of the
+# config's 1500 stub frames and WHISPER_PROMPT tokens, WHISPER_NEW new
+WHISPER_BATCH = 4
+WHISPER_PROMPT = 16
+WHISPER_NEW = 64
+# llava-next-34b at full width, depth cut to LLAVA_LAYERS, bf16, packed at
+# TILE and SPARSITY: LLAVA_BATCH requests of the config's 576 patches and
+# LLAVA_PROMPT tokens, LLAVA_NEW new; LLAVA_ROWS prefill rows
+LLAVA_LAYERS = 2
+LLAVA_BATCH = 2
+LLAVA_PROMPT = 32
+LLAVA_NEW = 16
+LLAVA_ROWS = LLAVA_BATCH * (576 + LLAVA_PROMPT)
+# ... and the views phase 2 adds for the decode-attention kernel at its
+# heads: one request's Engine cache (patches, prompt and new tokens) and
+# the prefill rows of both requests with their new tokens
+LLAVA_DA_VIEWS = (576 + LLAVA_PROMPT + LLAVA_NEW,
+                  LLAVA_ROWS + LLAVA_BATCH * LLAVA_NEW)
+# ... and its shape of the SSD intra-chunk block, (C, H, l, N, P)
+ZAMBA_SSD_SHAPE = (ZAMBA_BATCH * -(-ZAMBA_PROMPT // 256), 64, 256, 64, 64)
+FAMILIES_BUDGET_S = 120
 
 
 def log(*a) -> None:
@@ -983,6 +1054,12 @@ def check_kernels(torch, K, Q, shapes, mars_shapes):
     run_cases("phi3.5-moe head", 4096, 32064, (128, 64),
               [("", None, False)], (N_SLOTS, VERIFY_ROWS, PROMPT_ROWS),
               ("eq5", "f32", "bf16"))
+    # llava-next-34b's w_gate and w_down (phase 15) at decode rows and its
+    # prefill's LLAVA_ROWS (576 patches and LLAVA_PROMPT tokens a request)
+    for name, d_in, d_out in (("llava w_gate", 7168, 20480),
+                              ("llava w_down", 20480, 7168)):
+        run_cases(name, d_in, d_out, TILE, [("", None, False)],
+                  (N_SLOTS, LLAVA_ROWS), ("eq5", "f32", "bf16"))
     aligned = dict(K.LAUNCHES_BY_PATH)
     assert aligned["single masked"] == aligned["split masked"] == 0, aligned
     K.reset_launches()
@@ -1011,7 +1088,8 @@ def check_kernels(torch, K, Q, shapes, mars_shapes):
         f"1e-5, bf16 2e-2) at rows {(N_SLOTS, VERIFY_ROWS, PROMPT_ROWS)} "
         "(decode, speculative verify, prefill), with a draft-tier packing "
         f"at density {1.0 - SPEC_DRAFT_SPARSITY:.1f} beside each yi-6b "
-        "shape, each call repeated bit for bit and each layer's "
+        f"shape, llava-next-34b's w_gate and w_down at rows {N_SLOTS} and "
+        f"{LLAVA_ROWS}, each call repeated bit for bit and each layer's "
         "own packing bit for bit equal to the envelope; launches by path: "
         f"yi-6b shapes {aligned}, tiles {[t for _, _, t in MASKED_TILES]} "
         f"{masked}; MARS tiles {MARS_SIDES} x {MARS_SIDES} at "
@@ -1105,7 +1183,8 @@ def ssd_f64(torch, a, b, c, x):
 
 def check_ssd_intra(torch, SI, cfg):
     """Phase 2: ssd_intra_chunk against its plain version at the serving
-    shape (C = batch x chunks, H, l, N, P of mamba2-780m), the ragged one
+    shape (C = batch x chunks, H, l, N, P of mamba2-780m), zamba2-1.2b's
+    (phase 15: state 64, 64 heads), the ragged one
     (l, N, P off the tile grid: the masked load path), l < 16, H = 1 and l
     past one pass over the kernel's 256 S columns, with two decay draws:
     test_kernels.py's (-|N(0,1)| x 0.1) and the serving path's
@@ -1120,7 +1199,7 @@ def check_ssd_intra(torch, SI, cfg):
     err, exact = {}, {}
     f32, bf16 = torch.float32, torch.bfloat16
     SI.reset_launches()
-    for C, H, l, N, P in (serve_shape,) + SSD_SHAPES:
+    for C, H, l, N, P in (serve_shape, ZAMBA_SSD_SHAPE) + SSD_SHAPES:
         for draw in ("kernels", "serve"):
             z = torch.randn((C, H, l), generator=gen, device=DEV)
             a = (-z.abs() * 0.1 if draw == "kernels"
@@ -1152,7 +1231,8 @@ def check_ssd_intra(torch, SI, cfg):
                     exact[(C, H, l, N, P), draw] = (d_k, d_p)
                     del ref
             del args, got, again, want
-    log(f"[kernel] ssd_intra_chunk at {serve_shape} (C, H, l, N, P) and "
+    log(f"[kernel] ssd_intra_chunk at {serve_shape} (C, H, l, N, P), "
+        f"zamba2's {ZAMBA_SSD_SHAPE} and "
         f"{list(SSD_SHAPES)}: within tolerance (f32 1e-4, bf16 in 2e-2), "
         "each call repeated bit for bit; max |kernel - plain|: " + ", ".join(
             f"{k} {v:.3e}" for k, v in sorted(err.items()))
@@ -1623,6 +1703,71 @@ def _recording(torch, fn, secs, logits):
     return run
 
 
+def generate_recorded(torch, cfg, params, fns, batch, n_new):
+    """Engine.generate with each prefill and decode step timed on the host
+    clock (synchronized) and its logits kept. Returns (tokens, record)."""
+    from repro_torch.serve import Engine, ServeConfig
+    rec = {"prefill": [], "decode": [], "logits": []}
+    timed = dataclasses.replace(
+        fns, prefill=_recording(torch, fns.prefill, rec["prefill"],
+                                rec["logits"]),
+        decode_step=_recording(torch, fns.decode_step, rec["decode"],
+                               rec["logits"]))
+    t0 = time.perf_counter()
+    out = Engine(cfg, params, ServeConfig(max_new_tokens=n_new),
+                 fns=timed).generate(batch)
+    torch.cuda.synchronize()
+    rec["wall"] = time.perf_counter() - t0
+    return out, rec
+
+
+def serving_line(rec, rows, n_new) -> str:
+    """tokens/s, the prefill's seconds and the decode-step p50 of a
+    recorded generate (host clock, synchronized)."""
+    return (f"tokens_per_s {rows * n_new / rec['wall']:.2f} prefill_s "
+            f"{rec['prefill'][0]:.4f} decode_step_p50_s "
+            f"{statistics.median(rec['decode']):.5f} (wall "
+            f"{rec['wall']:.3f} s, {len(rec['decode'])} decode steps)")
+
+
+def first_divergences(torch, out, out_p, rec, rec_p):
+    """Each row's first divergence between two recorded generates' greedy
+    tokens: (row, forward, the second run's top-2 margin there, max |logit
+    diff| there). Up to that forward both runs fed the same tokens.
+    Returns (divergences, the second run's smallest margin)."""
+    top2 = [lg.topk(2, dim=-1).values for lg in rec_p["logits"]]
+    margins = torch.stack([t[:, 0] - t[:, 1] for t in top2], 1).cpu()
+    found = []
+    for row in range(out.shape[0]):
+        diff = (out[row] != out_p[row]).nonzero()[0]
+        if diff.size:
+            k = int(diff[0])
+            gap = (rec["logits"][k][row] - rec_p["logits"][k][row]).abs()
+            found.append((row, k, float(margins[row, k]), float(gap.max())))
+    return found, float(margins.min())
+
+
+def margin_rule(torch, out, out_p, rec, rec_p, n_new, tol, what):
+    """Greedy tokens of two runs equal until a row's first divergence,
+    which must sit where the second run's own top-2 margin is within
+    ``tol``. Returns the tokens equal before any divergence and the second
+    run's smallest margin."""
+    found, low = first_divergences(torch, out, out_p, rec, rec_p)
+    for row, k, margin, _ in found:
+        assert margin <= tol, (what, row, k, margin)
+    return out.size - sum(n_new - k for _, k, _, _ in found), low
+
+
+def f32_dense(torch, cfg, params):
+    """``cfg`` in f32 with cim_mode "dense" and ``params`` widened to f32
+    (every float leaf; a tree of dicts)."""
+    def widen(v):
+        return ({k: widen(x) for k, x in v.items()} if isinstance(v, dict)
+                else v.float())
+    return (dataclasses.replace(cfg, dtype="float32", cim_mode="dense"),
+            widen(params))
+
+
 def serve_mamba(torch, kern, cfg, params):
     """Phase 4: Engine.generate at full width and depth on the kernel path
     (timed, launches counted), then the kernel path against the plain path
@@ -1648,7 +1793,6 @@ def serve_mamba(torch, kern, cfg, params):
     from repro_torch.models import layers as L
     from repro_torch.models import registry
     from repro_torch.models import ssm as SSM
-    from repro_torch.serve import Engine, ServeConfig
     FQ = kern[1]
     fns = registry.model_fns(cfg)
     toks = torch.randint(0, cfg.vocab, (MAMBA_BATCH, MAMBA_PROMPT),
@@ -1657,26 +1801,14 @@ def serve_mamba(torch, kern, cfg, params):
     batch = {"tokens": toks}
 
     def generate(cfg, params):
-        """Engine.generate with each prefill and decode step timed on the
-        host clock (synchronized) and its logits kept."""
-        rec = {"prefill": [], "decode": [], "logits": []}
-        timed = dataclasses.replace(
-            fns, prefill=_recording(torch, fns.prefill, rec["prefill"],
-                                    rec["logits"]),
-            decode_step=_recording(torch, fns.decode_step, rec["decode"],
-                                   rec["logits"]))
-        eng = Engine(cfg, params, ServeConfig(max_new_tokens=MAMBA_NEW),
-                     fns=timed)
-        return eng.generate(batch), rec
+        return generate_recorded(torch, cfg, params, fns, batch, MAMBA_NEW)
 
-    Engine(cfg, params).generate({"tokens": toks[:1, :cfg.ssm_chunk]},
-                                 2)  # warm-up: kernel libraries, cuBLAS
-    torch.cuda.synchronize()
+    generate_recorded(torch, cfg, params, fns,
+                      {"tokens": toks[:1, :cfg.ssm_chunk]},
+                      2)  # warm-up: kernel libraries, cuBLAS
     reset_launches(kern)
-    t0 = time.perf_counter()
     out, rec = generate(cfg, params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = rec["wall"]
     counts = launch_counts(kern)
     forwards = len(rec["prefill"]) + len(rec["decode"])
     per_forward = 2 * (2 * cfg.n_layers + 1)  # (in_proj, out_proj) x L + head
@@ -1750,10 +1882,7 @@ def serve_mamba(torch, kern, cfg, params):
         f"{float(whole.abs().max()):.4e}), not held")
 
     # c. the whole path in f32, dense mode: logits and tokens
-    cfg32 = dataclasses.replace(cfg, dtype="float32", cim_mode="dense")
-    p32 = {k: ({n: t.float() for n, t in v.items()} if k == "layers"
-               else v.float()) for k, v in params.items()}
-
+    cfg32, p32 = f32_dense(torch, cfg, params)
     out32, rec32 = generate(cfg32, p32)
     with plain_kernels(kern):
         out32_p, rec32_p = generate(cfg32, p32)
@@ -1761,20 +1890,13 @@ def serve_mamba(torch, kern, cfg, params):
     diffs = [float((a - b).abs().max())
              for a, b in zip(rec32["logits"][:2], rec32_p["logits"][:2])]
     assert max(diffs) <= MAMBA_F32_TOL, diffs
-    top2 = [lg.topk(2, dim=-1).values for lg in rec32_p["logits"]]
-    margins = torch.stack([t[:, 0] - t[:, 1] for t in top2], 1).cpu()
-    same = 0
-    for row in range(MAMBA_BATCH):
-        diff = (out32[row] != out32_p[row]).nonzero()[0]
-        k = int(diff[0]) if diff.size else MAMBA_NEW
-        same += k
-        if k < MAMBA_NEW:  # the first divergence must sit on a near-tie
-            assert float(margins[row, k]) <= MAMBA_F32_TOL, (row, k)
+    same, low = margin_rule(torch, out32, out32_p, rec32, rec32_p,
+                            MAMBA_NEW, MAMBA_F32_TOL, "mamba2 f32")
     log(f"[mamba] f32 dense, kernel path vs plain path on the same weights: "
         f"prefill max |logit diff| {diffs[0]:.4e}, first decode step "
         f"{diffs[1]:.4e} (tolerance {MAMBA_F32_TOL}); greedy tokens {same} "
         f"of {MAMBA_BATCH * MAMBA_NEW} equal before any divergence, smallest "
-        f"plain-path top-2 margin {float(margins.min()):.4e}")
+        f"plain-path top-2 margin {low:.4e}")
     del p32
     return counts
 
@@ -2131,14 +2253,17 @@ def cli(torch, kern, card):
 
 
 def full_search() -> None:
-    """The sched phase's full-depth search, in a process of its own that
-    ``start_full_search`` starts before the build, so that its minutes of
-    host numpy overlap phases 1-6: ``default_schedule`` over full yi-6b
-    (32 layers, the CLI's defaults), printed as one JSON line."""
+    """The sched phase's search over many layers, in a process of its own
+    that ``start_full_search`` starts before the build, so that its host
+    numpy overlaps phases 1-6: ``default_schedule`` over full-width yi-6b
+    cut to SCHED_SEARCH_LAYERS layers (the CLI's defaults; the search
+    simulates the same block at every depth, so the cut keeps its tile and
+    shortens its minutes), printed as one JSON line."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.models import registry
     from repro_torch.serve import deployed as DP
-    cfg = registry.get_config("yi-6b", dtype="bfloat16")
+    cfg = registry.get_config("yi-6b", dtype="bfloat16",
+                              n_layers=SCHED_SEARCH_LAYERS)
     t0, c0 = time.perf_counter(), time.process_time()
     sched = DP.default_schedule(cfg)
     print(json.dumps({
@@ -2177,11 +2302,11 @@ class Tee:
 def sched(torch, kern, card, search):
     """Phase 9 (runs after phase 6; phase 8 times its tiles): the MARS
     schedule search and the CLI paths it drives, yi-6b at full width.
-    The full-depth ``default_schedule`` comes from ``search`` (started
-    before the build); the CLI runs, ``repro_torch.launch.serve.main``
+    The ``default_schedule`` over SCHED_SEARCH_LAYERS layers comes from
+    ``search`` (started before the build); the CLI runs, ``repro_torch.launch.serve.main``
     in-process, cut to SCHED_LAYERS layers by wrapping
     ``registry.get_config`` (their searches simulate 7 x SCHED_LAYERS
-    nodes, not 224): ``--autotune`` on a fresh pack (the table, the winner
+    nodes): ``--autotune`` on a fresh pack (the table, the winner
     never slower than the simulated pick, the timing launches counted),
     the same artifact booted (a cache hit, no ``autotune.*`` timer record,
     the fresh run's tokens), ``--compressed`` with no ``--tile`` on the
@@ -2206,11 +2331,13 @@ def sched(torch, kern, card, search):
     assert search.returncode == 0, err[-4000:]
     full = json.loads(out.strip().splitlines()[-1])
     full_tiles = sorted({tuple(t) for t in full["tiles"].values()})
-    assert full["n_nodes"] == 7 * full["n_layers"] == 224, full["n_nodes"]
+    assert full["n_nodes"] == 7 * full["n_layers"] == 7 * \
+        SCHED_SEARCH_LAYERS, full["n_nodes"]
     assert len(full_tiles) == 1, full_tiles
     full_tile = full_tiles[0]
-    log(f"[sched] default_schedule over full-depth yi-6b ({full['n_layers']}"
-        f" layers, {full['n_nodes']} projections, seq_len 128, groups and "
+    log(f"[sched] default_schedule over full-width yi-6b cut to "
+        f"{full['n_layers']} layers ({full['n_nodes']} projections, seq_len "
+        f"128, groups and "
         f"alphas 16-64): {full['seconds']:.2f} s on the host clock "
         f"({full['cpu_seconds']:.2f} s of CPU) in a process of its own "
         f"beside phases 1-6; tile {full_tile[0]}x{full_tile[1]} for every "
@@ -2732,7 +2859,6 @@ def times_decode_attention(torch, DA, cfg):
     extra products are its own overhead). Library: one
     scaled_dot_product_attention over the same inputs, the KV heads
     expanded to the query heads and the causal mask made ahead."""
-    F = torch.nn.functional
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(23)
     rows = []
@@ -2746,41 +2872,51 @@ def times_decode_attention(torch, DA, cfg):
         q_dt = torch.float32 if label.endswith("f32q") else torch.bfloat16
         q, k, v, pos = da_inputs(torch, cfg, t, sv, gen, torch.bfloat16,
                                  slots, q_dt)
-        pe = pos.long()[:, None] + torch.arange(t, device=DEV)[None]
-        keys = int((pe + 1).sum()) * cfg.n_heads  # (row, key) pairs
-        kv_rows = int(pe.max(dim=1).values.add(1).sum())
-        nbytes = (2 * q.numel() * q.element_size() + pos.numel() * 4
-                  + 2 * kv_rows * cfg.n_kv_heads * cfg.dh * 2)
-        b_ms, b_by = bound_ms(nbytes, 4 * cfg.dh * keys, BF16_TC_FLOPS_PER_S)
-        grp = cfg.n_heads // cfg.n_kv_heads
-        kh, vh = (a.to(q_dt).repeat_interleave(grp, dim=2).transpose(1, 2)
-                  for a in (k, v))
-        qh = q.transpose(1, 2)
-        kj = torch.arange(sv, device=DEV)[None, None, None, :]
-        mask = kj <= pe[:, None, :, None]
-        row = {"shape": f"decode_attention {label} {sv}",
-               "entry": "decode_attention", "B": slots, "T": t,
-               "Sv": sv, "H": cfg.n_heads, "KV": cfg.n_kv_heads,
-               "dh": cfg.dh, "attended_pairs": keys,
-               "kernel_ms": time_ms(torch, lambda: DA.decode_attention(
-                   q, k, v, pos), flush),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "plain_ms": time_ms(
-                   torch, lambda: DA.decode_attention_plain(q, k, v, pos),
-                   flush, iters=5, warm=1),
-               "library_ms": time_ms(
-                   torch, lambda: F.scaled_dot_product_attention(
-                       qh, kh, vh, attn_mask=mask), flush),
-               "device_ms": device_split(
-                   torch, lambda: DA.decode_attention(q, k, v, pos),
-                   flush, ("decode_attention_kernel",))[
-                       "decode_attention_kernel"],
-               "plan": list(dataclasses.astuple(DA.launch_plan(
-                   q, k, cfg.n_heads, q_dt, torch.bfloat16)))}
-        rows.append(row)
-        log(json.dumps(row))
-        del q, k, v, kh, vh, qh
+        rows.append(da_row(torch, DA, flush, cfg, label, q, k, v, pos))
+        del q, k, v
     return rows
+
+
+def da_row(torch, DA, flush, cfg, label, q, k, v, pos):
+    """Phase 8's row of one decode-attention launch over bf16 K/V at
+    ``cfg``'s heads (see times_decode_attention for the bound and the
+    library call)."""
+    F = torch.nn.functional
+    slots, t, _, _ = q.shape
+    sv, q_dt = k.shape[1], q.dtype
+    pe = pos.long()[:, None] + torch.arange(t, device=DEV)[None]
+    keys = int((pe + 1).sum()) * cfg.n_heads  # (row, key) pairs
+    kv_rows = int(pe.max(dim=1).values.add(1).sum())
+    nbytes = (2 * q.numel() * q.element_size() + pos.numel() * 4
+              + 2 * kv_rows * cfg.n_kv_heads * cfg.dh * 2)
+    b_ms, b_by = bound_ms(nbytes, 4 * cfg.dh * keys, BF16_TC_FLOPS_PER_S)
+    grp = cfg.n_heads // cfg.n_kv_heads
+    kh, vh = (a.to(q_dt).repeat_interleave(grp, dim=2).transpose(1, 2)
+              for a in (k, v))
+    qh = q.transpose(1, 2)
+    kj = torch.arange(sv, device=DEV)[None, None, None, :]
+    mask = kj <= pe[:, None, :, None]
+    row = {"shape": f"decode_attention {label} {sv}",
+           "entry": "decode_attention", "B": slots, "T": t,
+           "Sv": sv, "H": cfg.n_heads, "KV": cfg.n_kv_heads,
+           "dh": cfg.dh, "attended_pairs": keys,
+           "kernel_ms": time_ms(torch, lambda: DA.decode_attention(
+               q, k, v, pos), flush),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "plain_ms": time_ms(
+               torch, lambda: DA.decode_attention_plain(q, k, v, pos),
+               flush, iters=5, warm=1),
+           "library_ms": time_ms(
+               torch, lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, attn_mask=mask), flush),
+           "device_ms": device_split(
+               torch, lambda: DA.decode_attention(q, k, v, pos),
+               flush, ("decode_attention_kernel",))[
+                   "decode_attention_kernel"],
+           "plan": list(dataclasses.astuple(DA.launch_plan(
+               q, k, cfg.n_heads, q_dt, torch.bfloat16)))}
+    log(json.dumps(row))
+    return row
 
 
 def times_mamba(torch, kern, cfg, params):
@@ -2825,7 +2961,15 @@ def times_mamba(torch, kern, cfg, params):
         log(json.dumps(row))
     C = MAMBA_BATCH * MAMBA_PROMPT // cfg.ssm_chunk
     H, l, N = cfg.n_ssm_heads, cfg.ssm_chunk, cfg.ssm_state
-    P = cfg.d_inner // H
+    rows.append(ssd_row(torch, SI, flush, gen, "ssd_intra serve", C, H, l,
+                        N, cfg.d_inner // H))
+    return rows
+
+
+def ssd_row(torch, SI, flush, gen, label, C, H, l, N, P):
+    """Phase 8's row of ssd_intra_chunk at (C, H, l, N, P), bf16 in, f32
+    out, the decays drawn as the serving path makes them."""
+    bf16, f32 = torch.bfloat16, torch.float32
     a = -torch.nn.functional.softplus(torch.randn((C, H, l), generator=gen,
                                                   device=DEV))
     b, c = (torch.randn((C, l, N), generator=gen, device=DEV).to(bf16)
@@ -2843,7 +2987,7 @@ def times_mamba(torch, kern, cfg, params):
     flops = C * (2 * pairs * N + H * 2 * pairs * P)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)
     run = lambda: SI.ssd_intra_chunk(a, b, c, x, out_dtype=f32)
-    row = {"shape": "ssd_intra serve", "entry": "ssd_intra_chunk",
+    row = {"shape": label, "entry": "ssd_intra_chunk",
            "dims": {"C": C, "H": H, "l": l, "N": N, "P": P},
            "dtype": "bfloat16 in, float32 out",
            "kernel_ms": time_ms(torch, run, flush),
@@ -2856,9 +3000,8 @@ def times_mamba(torch, kern, cfg, params):
            "device_ms": device_split(torch, run, flush,
                                      ("ssd_intra",))["ssd_intra"],
            "plan": dataclasses.asdict(SI.launch_plan(a, b, c, x))}
-    rows.append(row)
     log(json.dumps(row))
-    return rows
+    return row
 
 
 def times_quant_matmul(torch, QM, cfg, mlp, bench):
@@ -3767,18 +3910,23 @@ def check_grouped_matmul(torch, GM):
 
 
 def check_moe_attention(torch, DA, cfgs):
-    """Phase 2: the decode-attention kernel at the heads phase 12 brings,
-    stablelm-12b's dh 160 and grok-1's 6 heads a kv head (its first group
-    that is not a power of two), decode and verify rows over the main
-    path's view and a 1k view, bf16 within DA_TOL of max |plain| and f32 q
-    over bf16 K/V within DA_F32_TOL; each call repeated bit for bit.
-    Returns the largest |kernel - plain|."""
+    """Phase 2: the decode-attention kernel at the heads phases 12 and 15
+    bring, stablelm-12b's dh 160, grok-1's 6 heads a kv head (its first
+    group that is not a power of two), whisper-tiny's and zamba2-1.2b's
+    dh 64 without grouping (6 and 32 heads; RoPE, off in whisper, is
+    applied before the kernel), llava-next-34b's 7 heads of 128 a kv head
+    (56 over 8), decode and verify rows over the main path's view and a 1k
+    view (llava also over LLAVA_DA_VIEWS), bf16 within DA_TOL of max
+    |plain| and f32 q over bf16 K/V within DA_F32_TOL; each call repeated
+    bit for bit. Returns the largest |kernel - plain|."""
     gen = torch.Generator(device=DEV).manual_seed(27)
     worst, n = 0.0, 0
     for cfg in cfgs:
+        views = DA_VIEWS[:2] + (LLAVA_DA_VIEWS if cfg.family == "vlm"
+                                else ())
         for q_dt, tol in ((torch.bfloat16, DA_TOL),
                           (torch.float32, DA_F32_TOL)):
-            for sv in DA_VIEWS[:2]:
+            for sv in views:
                 for t in (1, SPEC_K + 1):
                     q, k, v, pos = da_inputs(torch, cfg, t, sv, gen,
                                              torch.bfloat16, N_SLOTS, q_dt)
@@ -3794,6 +3942,44 @@ def check_moe_attention(torch, DA, cfgs):
     log(f"[kernel] decode_attention at {heads} (dh, heads a kv head): {n} "
         f"cases within tolerance, each repeated bit for bit; max |kernel - "
         f"plain| {worst:.3e}")
+    return worst
+
+
+def check_ring_attention(torch, DA, cfg):
+    """Phase 2: the hybrid family's ring decode as
+    ``layers.decode_attention_ring`` launches it: zamba2's heads (32 of 64,
+    MHA) over its window-sized ring of cfg.window slots, the step's K/V
+    written at slot pos % window first, the query at min(pos, window - 1),
+    no window and no k_new, at positions before, at and past the wrap,
+    bf16 within DA_TOL and f32 within DA_F32_TOL of max |plain|; each call
+    repeated bit for bit. Returns the largest |kernel - plain|."""
+    gen = torch.Generator(device=DEV).manual_seed(29)
+    smax, worst, n = cfg.window, 0.0, 0
+    for dt, tol in ((torch.bfloat16, DA_TOL), (torch.float32, DA_F32_TOL)):
+        k, v = (torch.randn((ZAMBA_BATCH, smax, cfg.n_kv_heads, cfg.dh),
+                            generator=gen, device=DEV).to(dt)
+                for _ in range(2))
+        for pos in (100, smax - 1, smax, smax + 777):
+            q = torch.randn((ZAMBA_BATCH, 1, cfg.n_heads, cfg.dh),
+                            generator=gen, device=DEV).to(dt)
+            k[:, pos % smax] = torch.randn(k[:, 0].shape, generator=gen,
+                                           device=DEV).to(dt)
+            last = torch.full((ZAMBA_BATCH,), min(pos, smax - 1),
+                              dtype=torch.long, device=DEV)
+            got = DA.decode_attention(q, k, v, last, 0, cfg.n_heads)
+            assert torch.equal(got, DA.decode_attention(q, k, v, last, 0,
+                                                        cfg.n_heads))
+            want = DA.decode_attention_plain(q, k, v, last, 0,
+                                             cfg.n_heads).float()
+            err = float((got.float() - want).abs().max())
+            assert err <= tol * max(1.0, float(want.abs().max())), \
+                (dt, pos, err)
+            worst, n = max(worst, err), n + 1
+    log(f"[kernel] decode_attention in the ring mapping ({cfg.name}: "
+        f"{cfg.n_heads} heads of {cfg.dh} over a {smax}-slot ring, "
+        f"positions before, at and past the wrap): {n} cases within "
+        f"tolerance (bf16 {DA_TOL}, f32 {DA_F32_TOL}), each repeated bit for "
+        f"bit; max |kernel - plain| {worst:.3e}")
     return worst
 
 
@@ -4729,6 +4915,484 @@ def times_grouped_matmul(torch, GM):
     return rows
 
 
+def zamba_launches(cfg, prefills, forwards, steps) -> dict:
+    """The launches of a QAT zamba2 Engine run: fake_quant on the
+    activations and the weight of every projection, every forward (in_proj
+    and out_proj of each mamba block, the shared block's 7 at each
+    super-layer, the head); ssd_intra_chunk once a mamba block in every
+    prefill; the decode-attention kernel once a super-layer in every
+    decode step (the shared block's ring)."""
+    n_super = cfg.n_layers // cfg.attn_every
+    return {"bsr_matmul": 0, "bsr_matmul_stacked": 0,
+            "fake_quant": 2 * (2 * cfg.n_layers + 7 * n_super + 1)
+            * forwards, "ssd_intra_chunk": cfg.n_layers * prefills,
+            "quant_matmul": 0, "decode_attention": n_super * steps,
+            "grouped_matmul": 0}
+
+
+def serve_zamba(torch, kern, card):
+    """Phase 15a: zamba2-1.2b at full width and depth (bf16, QAT w8a8)
+    through ``Engine.generate``: ZAMBA_BATCH prompts of ZAMBA_PROMPT
+    tokens, ZAMBA_NEW new, the shared block's KV ring wrapping at step
+    window - ZAMBA_PROMPT. Launch counts exact (zamba_launches). Then, as
+    phase 4 holds mamba2: (a) fake_quant swapped for its plain version, the
+    whole generate bit for bit; (b) every kernel swapped, each mamba block
+    and each call of the shared block on the kernel path's own input
+    within LAYER_ULPS bf16 ulps of its scale; (c) the same weights in f32,
+    cim_mode "dense", ZAMBA_F32_NEW steps: kernel path vs all-plain path
+    (the decode attention too), prefill and first decode logits within
+    MAMBA_F32_TOL and tokens by the margin rule; the last step's logits,
+    past the wrap, within MAMBA_F32_TOL of a from-scratch windowed prefill
+    of the whole sequence so far. Returns the launch counts."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+    FQ = kern[1]
+    cfg = registry.get_config("zamba2-1.2b", cim_mode="qat")
+    n_super = cfg.n_layers // cfg.attn_every
+    log(f"[families] zamba2-1.2b at full width and depth ({cfg.n_layers} "
+        f"layers: {n_super} x {cfg.attn_every} mamba blocks each followed "
+        f"by the shared block, {cfg.n_layers - n_super * cfg.attn_every} "
+        f"in the tail; d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.dh}, d_ff {cfg.d_ff}, state {cfg.ssm_state}, chunk "
+        f"{cfg.ssm_chunk}, window {cfg.window}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}), cim_mode {cfg.cim_mode} w{cfg.w_bits}a{cfg.a_bits};"
+        " random weights, seed 0")
+    fns = registry.model_fns(cfg)
+    params = fns.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             device=DEV)
+    toks = torch.randint(0, cfg.vocab, (ZAMBA_BATCH, ZAMBA_PROMPT),
+                         generator=torch.Generator(device=DEV).manual_seed(1),
+                         device=DEV, dtype=torch.int32)
+    batch = {"tokens": toks}
+    generate_recorded(torch, cfg, params, fns,
+                      {"tokens": toks[:1, :cfg.ssm_chunk]}, 2)  # warm-up
+    reset_launches(kern)
+    out, rec = generate_recorded(torch, cfg, params, fns, batch, ZAMBA_NEW)
+    counts = launch_counts(kern)
+    steps = len(rec["decode"])
+    want = zamba_launches(cfg, 1, 1 + steps, steps)
+    assert same_counts(counts, want), (counts, want)
+    assert out.shape == (ZAMBA_BATCH, ZAMBA_NEW)
+    assert ((0 <= out) & (out < cfg.vocab)).all()
+    assert all(torch.isfinite(lg).all() for lg in rec["logits"])
+    wrap = cfg.window - ZAMBA_PROMPT
+    log(f"[families] zamba2 Engine.generate: {ZAMBA_BATCH} x {ZAMBA_PROMPT}"
+        f" prompt tokens, {ZAMBA_NEW} new, the ring wrapping at decode step "
+        f"{wrap}; " + serving_line(rec, ZAMBA_BATCH, ZAMBA_NEW)
+        + f"; launches {counts} exact ({card})")
+
+    # a. fake_quant alone on its plain version: the same run, bit for bit
+    saved = FQ.fake_quant
+    FQ.fake_quant = FQ.fake_quant_plain
+    try:
+        out_fq, rec_fq = generate_recorded(torch, cfg, params, fns, batch,
+                                           ZAMBA_NEW)
+    finally:
+        FQ.fake_quant = saved
+    assert (out_fq == out).all()
+    assert all(torch.equal(a, b) for a, b in zip(rec["logits"],
+                                                 rec_fq["logits"]))
+    del rec_fq
+
+    # b. every block on the kernel path's own input, every kernel swapped
+    worst = 0.0
+
+    def held(i, got, ref):
+        nonlocal worst
+        ulp = math.ldexp(1.0, math.frexp(float(ref.float().abs().max()))[1]
+                         - 8)  # a bf16 ulp at the tensor's largest value
+        d = float((got.float() - ref.float()).abs().max())
+        assert d <= LAYER_ULPS * ulp, (i, d, ulp)
+        worst = max(worst, d / ulp)
+
+    with torch.no_grad():
+        x = L.embed(params["embed"], toks, cfg.param_dtype)
+        positions = torch.arange(ZAMBA_PROMPT, device=DEV)[None, :]
+        blocks = [(f"body {s}.{j}", T._body_layer(params, s, j))
+                  for s in range(n_super) for j in range(cfg.attn_every)]
+        blocks = [blocks[s * cfg.attn_every:(s + 1) * cfg.attn_every]
+                  + [(f"shared {s}", None)] for s in range(n_super)]
+        blocks = [b for grp in blocks for b in grp] + [
+            (f"tail {i}", T._tail_layer(params, i))
+            for i in range(cfg.n_layers - n_super * cfg.attn_every)]
+        n_shared = 0
+        for name, p in blocks:
+            if p is None:
+                gate = params["attn_gate"][n_shared]
+                y, _ = T._shared_block(params["shared_attn"], x, gate, cfg,
+                                       positions)
+                with plain_kernels(kern):
+                    y_p, _ = T._shared_block(params["shared_attn"], x, gate,
+                                             cfg, positions)
+                held(name, y, y_p)
+                x, n_shared = y, n_shared + 1
+                continue
+            h = L.rmsnorm(x, p["ln"])
+            y, (_, state) = SSM.mamba_block(p, h, cfg)
+            with plain_kernels(kern):
+                y_p, (_, state_p) = SSM.mamba_block(p, h, cfg)
+            held(name, y, y_p)
+            held(name, state, state_p)
+            x = x + y
+        del x, y, y_p, h
+    log(f"[families] zamba2 kernel vs plain: fake_quant swapped, all "
+        f"{1 + steps} forwards' logits and all tokens equal bit for bit; "
+        f"every kernel swapped, each of {len(blocks)} blocks ({n_shared} "
+        f"calls of the shared block) on the kernel path's inputs: max "
+        f"|diff| {worst:.3f} bf16 ulps of its scale (tolerance "
+        f"{LAYER_ULPS})")
+
+    # c. the whole path in f32, dense mode, past the wrap
+    cfg32, p32 = f32_dense(torch, cfg, params)
+    del params
+    fns32 = registry.model_fns(cfg32)
+    out32, rec32 = generate_recorded(torch, cfg32, p32, fns32, batch,
+                                     ZAMBA_F32_NEW)
+    with plain_kernels(kern, attention=True):
+        out32_p, rec32_p = generate_recorded(torch, cfg32, p32, fns32, batch,
+                                             ZAMBA_F32_NEW)
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(rec32["logits"][:2], rec32_p["logits"][:2])]
+    assert max(diffs) <= MAMBA_F32_TOL, diffs
+    same, low = margin_rule(torch, out32, out32_p, rec32, rec32_p,
+                            ZAMBA_F32_NEW, MAMBA_F32_TOL, "zamba2 f32")
+    seq = torch.cat([toks, torch.from_numpy(out32).to(DEV)], dim=1)
+    with torch.no_grad():
+        whole, _ = T.prefill(p32, {"tokens": seq}, cfg32)
+    last = float((rec32["logits"][-1] - whole).abs().max())
+    assert last <= MAMBA_F32_TOL, last
+    log(f"[families] zamba2 f32 dense, kernel path vs plain path: prefill "
+        f"max |logit diff| {diffs[0]:.4e}, first decode step {diffs[1]:.4e}"
+        f" (tolerance {MAMBA_F32_TOL}); greedy tokens {same} of "
+        f"{ZAMBA_BATCH * ZAMBA_F32_NEW} equal before any divergence, "
+        f"smallest plain-path top-2 margin {low:.4e}; decode step "
+        f"{ZAMBA_F32_NEW - 1} (position {ZAMBA_PROMPT + ZAMBA_F32_NEW - 1}, "
+        f"{ZAMBA_F32_NEW - wrap} slots past the wrap) vs a from-scratch "
+        f"windowed prefill of all {seq.shape[1]} tokens: max |logit diff| "
+        f"{last:.4e} (tolerance {MAMBA_F32_TOL})")
+    del p32, whole
+    return counts
+
+
+def whisper_launches(cfg, steps) -> dict:
+    """The launches of a QAT whisper Engine run: fake_quant on the
+    activations and the weight of every projection: the encoder's q, k, v,
+    o, up and down a layer; the decoder prefill's self q, k, v, o, cross q
+    and o, the cross K/V over the encoder output, up and down a layer; a
+    decode step's 8 a layer (the cross K/V are the prefill's); the tied
+    head every forward. The decode-attention kernel once a decoder layer
+    in every decode step."""
+    enc, prefill, step = 6 * cfg.enc_layers, 10 * cfg.n_layers, \
+        8 * cfg.n_layers
+    return {"bsr_matmul": 0, "bsr_matmul_stacked": 0,
+            "fake_quant": 2 * (enc + prefill + 1) + 2 * (step + 1) * steps,
+            "ssd_intra_chunk": 0, "quant_matmul": 0,
+            "decode_attention": cfg.n_layers * steps, "grouped_matmul": 0}
+
+
+def serve_whisper(torch, kern, card):
+    """Phase 15b: whisper-tiny at full size (bf16, QAT w8a8) through
+    ``Engine.generate``: WHISPER_BATCH requests of 1500 stub frames and
+    WHISPER_PROMPT tokens, WHISPER_NEW new; launch counts exact
+    (whisper_launches, the cross K/V and the tied head named in them);
+    fake_quant swapped, the whole generate bit for bit; in f32 dense mode
+    the kernel path vs the all-plain path: prefill and first decode logits
+    within MAMBA_F32_TOL, tokens by the margin rule. Returns the launch
+    counts."""
+    from repro_torch.models import registry
+    FQ = kern[1]
+    cfg = registry.get_config("whisper-tiny", cim_mode="qat")
+    log(f"[families] whisper-tiny at full size ({cfg.enc_layers} + "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads"
+        f" of {cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.enc_seq} "
+        f"frames, tied head, {cfg.dtype}), cim_mode {cfg.cim_mode} "
+        f"w{cfg.w_bits}a{cfg.a_bits}; random weights, seed 0; stub frames "
+        "from seed 2")
+    fns = registry.model_fns(cfg)
+    params = fns.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (WHISPER_BATCH,
+                                                    WHISPER_PROMPT),
+                                     generator=gen, device=DEV,
+                                     dtype=torch.int32),
+             "frames": (torch.randn((WHISPER_BATCH, cfg.enc_seq,
+                                     cfg.d_model), generator=gen,
+                                    device=DEV) * 0.02).to(cfg.param_dtype)}
+    generate_recorded(torch, cfg, params, fns,
+                      {k: v[:1] for k, v in batch.items()}, 2)  # warm-up
+    reset_launches(kern)
+    out, rec = generate_recorded(torch, cfg, params, fns, batch, WHISPER_NEW)
+    counts = launch_counts(kern)
+    steps = len(rec["decode"])
+    want = whisper_launches(cfg, steps)
+    assert same_counts(counts, want), (counts, want)
+    assert out.shape == (WHISPER_BATCH, WHISPER_NEW)
+    assert ((0 <= out) & (out < cfg.vocab)).all()
+    assert all(torch.isfinite(lg).all() for lg in rec["logits"])
+    log(f"[families] whisper Engine.generate: {WHISPER_BATCH} requests of "
+        f"{cfg.enc_seq} frames and {WHISPER_PROMPT} tokens, {WHISPER_NEW} "
+        "new; " + serving_line(rec, WHISPER_BATCH, WHISPER_NEW)
+        + f"; launches {counts} exact: fake_quant {2 * 6 * cfg.enc_layers} "
+        f"in the encoder, {2 * 10 * cfg.n_layers} in the decoder's prefill "
+        f"({2 * 2 * cfg.n_layers} of them the cross K/V), "
+        f"{2 * 8 * cfg.n_layers} a decode step, 2 a forward for the tied "
+        f"head ({card})")
+    saved = FQ.fake_quant
+    FQ.fake_quant = FQ.fake_quant_plain
+    try:
+        out_fq, rec_fq = generate_recorded(torch, cfg, params, fns, batch,
+                                           WHISPER_NEW)
+    finally:
+        FQ.fake_quant = saved
+    assert (out_fq == out).all()
+    assert all(torch.equal(a, b) for a, b in zip(rec["logits"],
+                                                 rec_fq["logits"]))
+    cfg32, p32 = f32_dense(torch, cfg, params)
+    b32 = {"tokens": batch["tokens"], "frames": batch["frames"].float()}
+    fns32 = registry.model_fns(cfg32)
+    out32, rec32 = generate_recorded(torch, cfg32, p32, fns32, b32,
+                                     WHISPER_NEW)
+    with plain_kernels(kern, attention=True):
+        out32_p, rec32_p = generate_recorded(torch, cfg32, p32, fns32, b32,
+                                             WHISPER_NEW)
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(rec32["logits"][:2], rec32_p["logits"][:2])]
+    assert max(diffs) <= MAMBA_F32_TOL, diffs
+    same, low = margin_rule(torch, out32, out32_p, rec32, rec32_p,
+                            WHISPER_NEW, MAMBA_F32_TOL, "whisper f32")
+    log(f"[families] whisper kernel vs plain: fake_quant swapped, all "
+        f"{1 + steps} forwards' logits and all tokens equal bit for bit; f32"
+        f" dense, every kernel swapped: prefill max |logit diff| "
+        f"{diffs[0]:.4e}, first decode step {diffs[1]:.4e} (tolerance "
+        f"{MAMBA_F32_TOL}); greedy tokens {same} of "
+        f"{WHISPER_BATCH * WHISPER_NEW} equal before any divergence, "
+        f"smallest plain-path top-2 margin {low:.4e}")
+    return counts
+
+
+def serve_llava(torch, kern, card):
+    """Phase 15c: llava-next-34b at full width, depth cut to LLAVA_LAYERS
+    (bf16, packed at TILE and SPARSITY, ``mm_proj`` in float) through
+    ``Engine.generate`` on the loop runtime (``deployed.model_fns``) and
+    the scan runtime (``stacked.model_fns``): LLAVA_BATCH requests of 576
+    stub patches and LLAVA_PROMPT tokens, LLAVA_NEW new. Launch counts
+    exact (compressed_launches: 7 projections a layer and the head on the
+    block-sparse kernel a forward, eq. 5 on fake_quant before each, the
+    decode attention a layer a step); loop = scan bit for bit; the
+    block-sparse and fake_quant kernels swapped for their plain versions:
+    every forward's logits and every token bit for bit (the f32 sums of
+    eq. 5 data and int8 levels are exact in any order); every kernel
+    swapped (the decode attention too): each row's first divergence
+    printed with the plain path's top-2 margin and the two runs' max
+    |logit diff| at that forward, not held (the attention kernel's bf16
+    roundings, phase 2 holds them to DA_TOL, move eq. 5 levels of the next
+    projections, and random weights carry that into the logits); the
+    same weights in f32 with cim_mode "dense", the kernel path against the
+    plain path: prefill and first decode logits within MAMBA_F32_TOL and
+    greedy tokens by the margin rule over every step, as phases 4 and 15
+    hold zamba2 and whisper; ``save_artifact`` -> ``load_artifact``
+    serves the same tokens and logits bit for bit. Returns the launch
+    counts."""
+    import shutil
+    import tempfile
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import deployed as DP
+    from repro_torch.serve import stacked as ST
+    cfg = registry.get_config("llava-next-34b", n_layers=LLAVA_LAYERS)
+    full = registry.get_config("llava-next-34b")
+    log(f"[families] llava-next-34b at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.dh}, d_ff {cfg.d_ff},"
+        f" vocab {cfg.vocab}, {cfg.n_patches} patches, {cfg.dtype}); depth "
+        f"cut from {full.n_layers} to {cfg.n_layers} layers; random weights,"
+        " seed 0; stub patches from seed 3")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    sp = DP.compress(cfg, params, target_sparsity=SPARSITY, tile=TILE,
+                     uniform=True)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    assert DP.packed_tiles(sp) == [TILE] and sp.head is not None
+    assert torch.is_tensor(sp.mm_proj)  # the projector stays float
+    sxp = ST.stack(sp)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LLAVA_BATCH,
+                                                    LLAVA_PROMPT),
+                                     generator=gen, device=DEV,
+                                     dtype=torch.int32),
+             "patch_embeds": (torch.randn((LLAVA_BATCH, cfg.n_patches,
+                                           cfg.d_model), generator=gen,
+                                          device=DEV) * 0.02).to(
+                                              cfg.param_dtype)}
+    fns = {"loop": DP.model_fns(cfg), "scan": ST.model_fns(cfg)}
+    held = {"loop": sp, "scan": sxp}
+    counts, recs, outs = {}, {}, {}
+    for name in ("loop", "scan"):
+        generate_recorded(torch, cfg, held[name], fns[name],
+                          {k: v[:1] for k, v in batch.items()}, 2)
+        reset_launches(kern)
+        outs[name], recs[name] = generate_recorded(
+            torch, cfg, held[name], fns[name], batch, LLAVA_NEW)
+        got = launch_counts(kern)
+        steps = len(recs[name]["decode"])
+        want = compressed_launches(cfg, name, 1 + steps, steps)
+        assert same_counts(got, want), (name, got, want)
+        counts[f"families llava {name}"] = got
+        log(f"[families] llava {name}: {LLAVA_BATCH} requests of "
+            f"{cfg.n_patches} patches and {LLAVA_PROMPT} tokens "
+            f"({LLAVA_BATCH * (cfg.n_patches + LLAVA_PROMPT)} prefill "
+            f"rows), {LLAVA_NEW} new; "
+            + serving_line(recs[name], LLAVA_BATCH, LLAVA_NEW)
+            + f"; launches {got} exact ({card})")
+    assert (outs["loop"] == outs["scan"]).all()
+    assert all(torch.equal(a, b) for a, b in zip(recs["loop"]["logits"],
+                                                 recs["scan"]["logits"]))
+    assert ((0 <= outs["loop"]) & (outs["loop"] < cfg.vocab)).all()
+    with plain_kernels(kern):
+        out_p, rec_p = generate_recorded(torch, cfg, sp, fns["loop"], batch,
+                                         LLAVA_NEW)
+    assert (out_p == outs["loop"]).all()
+    assert all(torch.equal(a, b) for a, b in zip(recs["loop"]["logits"],
+                                                 rec_p["logits"]))
+    with plain_kernels(kern, attention=True):
+        out_a, rec_a = generate_recorded(torch, cfg, sp, fns["loop"], batch,
+                                         LLAVA_NEW)
+    found, low = first_divergences(torch, outs["loop"], out_a,
+                                   recs["loop"], rec_a)
+    same = out_a.size - sum(LLAVA_NEW - k for _, k, _, _ in found)
+    # the forwards every row ran on the same tokens in both runs
+    shared = min([k for _, k, _, _ in found] + [LLAVA_NEW - 1]) + 1
+    gaps = [float((a.float() - b.float()).abs().max()) for a, b in
+            zip(recs["loop"]["logits"][:shared], rec_a["logits"][:shared])]
+    top = float(recs["loop"]["logits"][0].float().abs().max())
+    cfg32, p32 = f32_dense(torch, cfg, params)
+    del params
+    fns32 = registry.model_fns(cfg32)
+    b32 = {"tokens": batch["tokens"],
+           "patch_embeds": batch["patch_embeds"].float()}
+    reset_launches(kern)
+    out32, rec32 = generate_recorded(torch, cfg32, p32, fns32, b32,
+                                     LLAVA_NEW)
+    steps32 = len(rec32["decode"])
+    assert launch_counts(kern)["decode_attention"] == cfg.n_layers * steps32
+    with plain_kernels(kern, attention=True):
+        out32_p, rec32_p = generate_recorded(torch, cfg32, p32, fns32, b32,
+                                             LLAVA_NEW)
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(rec32["logits"][:2], rec32_p["logits"][:2])]
+    assert max(diffs) <= MAMBA_F32_TOL, diffs
+    same32, low32 = margin_rule(torch, out32, out32_p, rec32, rec32_p,
+                                LLAVA_NEW, MAMBA_F32_TOL, "llava f32")
+    del p32
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_llava_")
+    try:
+        t0 = time.perf_counter()
+        DP.save_artifact(os.path.join(tmp, "llava"), sp, cfg)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        booted, extra = DP.load_artifact(os.path.join(tmp, "llava"),
+                                         arch=cfg.name, tile=TILE,
+                                         device=DEV)
+        boot_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert extra["family"] == "vlm" and torch.equal(booted.mm_proj,
+                                                    sp.mm_proj)
+    out_b, rec_b = generate_recorded(torch, cfg, booted, fns["loop"], batch,
+                                     LLAVA_NEW)
+    assert (out_b == outs["loop"]).all()
+    assert all(torch.equal(a, b) for a, b in zip(recs["loop"]["logits"],
+                                                 rec_b["logits"]))
+    log(f"[families] llava: pack {pack_s:.1f} s (tile {TILE}, "
+        f"compression_x {sp.report()['compression_x']:.3f}); loop = scan "
+        f"tokens and logits bit for bit; block-sparse and fake_quant plain: "
+        f"all {len(rec_p['logits'])} forwards' logits and all tokens bit for"
+        f" bit; every kernel plain (printed, not held): tokens {same} of "
+        f"{out_a.size} equal before any divergence, first divergences (row,"
+        f" forward, plain-path top-2 margin, max |logit diff| there) "
+        f"{found}, smallest plain-path margin {low:.4e}, max |logit diff|"
+        f" of forwards 0-{shared - 1} (the same tokens in every row) "
+        f"{[float(f'{g:.4g}') for g in gaps]} against a prefill max |logit|"
+        f" of {top:.4g}; f32 dense, the "
+        f"decode attention on its kernel ({cfg.n_layers * steps32} launches)"
+        f" vs plain: prefill max |logit diff| {diffs[0]:.4e}, first decode "
+        f"step {diffs[1]:.4e} (tolerance {MAMBA_F32_TOL}), greedy tokens "
+        f"{same32} of {out32.size} equal before any divergence (margin rule"
+        f" held over every step), smallest plain-path top-2 margin "
+        f"{low32:.4e}; artifact saved in {save_s:.1f} s, booted in "
+        f"{boot_s:.1f} s: tokens and logits bit for bit ({card})")
+    del sp, sxp, booted
+    return counts
+
+
+def families(torch, kern, card):
+    """Phase 15 (families): the hybrid, encdec and vlm families served on
+    the card (serve_zamba, serve_whisper, serve_llava), each driven with
+    the launch counts at 0 and read after. Returns the counts."""
+    t_phase = time.perf_counter()
+    counts = {"families zamba2": serve_zamba(torch, kern, card)}
+    torch.cuda.empty_cache()
+    counts["families whisper"] = serve_whisper(torch, kern, card)
+    torch.cuda.empty_cache()
+    counts.update(serve_llava(torch, kern, card))
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[families] phase {secs:.1f} s ({card})")
+    assert secs <= FAMILIES_BUDGET_S, secs
+    return counts
+
+
+def times_families(torch, kern):
+    """Phase 8 at phase 15's shapes: ssd_intra_chunk at zamba2's serving
+    shape (bf16 in, f32 out); the decode-attention kernel at whisper's
+    decode (6 heads of 64, MHA, over its self-attention cache) and at
+    zamba2's ring decode (32 heads of 64 over the 4096-slot ring, the
+    query at its last slot); the block-sparse kernel at llava's w_gate and
+    w_down, random weights from a seed pruned to SPARSITY and packed at
+    TILE, at decode rows and the LLAVA_ROWS prefill rows."""
+    from repro_torch.core import deploy as D
+    from repro_torch.core import quant as Q
+    from repro_torch.models import registry
+    K, _, SI, _, DA, _ = kern
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    rows = [ssd_row(torch, SI, flush, gen, "ssd_intra zamba2 serve",
+                    *ZAMBA_SSD_SHAPE)]
+    wcfg = registry.get_config("whisper-tiny")
+    zcfg = registry.get_config("zamba2-1.2b")
+    total = WHISPER_PROMPT + WHISPER_NEW
+    q, k, v, _ = da_inputs(torch, wcfg, 1, total, gen, torch.bfloat16,
+                           WHISPER_BATCH)
+    pos = torch.full((WHISPER_BATCH,), total - 1, dtype=torch.int32,
+                     device=DEV)
+    rows.append(da_row(torch, DA, flush, wcfg, "whisper decode", q, k, v,
+                       pos))
+    q, k, v, _ = da_inputs(torch, zcfg, 1, zcfg.window, gen, torch.bfloat16,
+                           ZAMBA_BATCH)
+    pos = torch.full((ZAMBA_BATCH,), zcfg.window - 1, dtype=torch.int32,
+                     device=DEV)
+    rows.append(da_row(torch, DA, flush, zcfg, "zamba2 ring", q, k, v, pos))
+    lcfg = registry.get_config("llava-next-34b")
+    layer0 = torch.zeros(1, dtype=torch.int32, device=DEV)
+    for name, d_in, d_out in (("w_gate", lcfg.d_model, lcfg.d_ff),
+                              ("w_down", lcfg.d_ff, lcfg.d_model)):
+        w = torch.randn((d_in, d_out), generator=gen, device=DEV) * 0.02
+        sw = D.stack_deployed([D.deploy_weight(
+            w, lcfg.cim, bk=TILE[0], bn=TILE[1], target_sparsity=SPARSITY)])
+        del w
+        ops = [sw.blocks, sw.scales, sw.row_idx, sw.nnz]
+        rows += bsr_rows(
+            torch, K, Q, flush, f"llava {name}", "bsr_matmul_stacked", ops,
+            lambda x, ops=ops: K.bsr_matmul_stacked(x, *ops, layer0), d_in,
+            ms=(N_SLOTS, LLAVA_ROWS))
+        del sw, ops
+    return rows
+
+
 def main() -> int:
     # the train phase runs under torch.use_deterministic_algorithms, whose
     # cuBLAS needs a fixed workspace, read when cuBLAS starts
@@ -4747,7 +5411,7 @@ def main() -> int:
 
 
 def run_all(torch, search) -> int:
-    """Phases 1-14 (see the module docstring); ``search`` is the full-depth
+    """Phases 1-15 (see the module docstring); ``search`` is the
     schedule search's process, read by phase 9."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import quant as Q
@@ -4801,8 +5465,10 @@ def run_all(torch, search) -> int:
     max_err["grouped_matmul"] = check_grouped_matmul(torch, GM)
     max_err["decode_attention"] = max(
         max_err["decode_attention"], check_moe_attention(torch, DA, [
-            registry.get_config(a) for a in ("stablelm-12b",
-                                             "grok-1-314b")]))
+            registry.get_config(a) for a in (
+                "stablelm-12b", "grok-1-314b", "whisper-tiny",
+                "zamba2-1.2b", "llava-next-34b")]),
+        check_ring_attention(torch, DA, registry.get_config("zamba2-1.2b")))
 
     log(f"[serve] yi-6b at full width ({cfg.d_model} wide, {cfg.n_heads}/"
         f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
@@ -4848,6 +5514,7 @@ def run_all(torch, search) -> int:
                                              draft, scan, card)
     counts.update(macro_counts)
     counts.update(gateway(torch, kern, cfg, sp, card))
+    counts.update(families(torch, kern, card))
     max_err.update(macro_err)
     max_err["bsr_matmul"] = max(max_err["bsr_matmul"], deploy_err)
 
@@ -4864,7 +5531,8 @@ def run_all(torch, search) -> int:
             + times_train(torch, kern, registry.get_config("yi-6b"), mcfg)
             + cnn_rows + times_cnn(torch, kern)
             + times_grouped_matmul(torch, GM)
-            + times_macro(torch, K, Q, sp, sxp, sharded))
+            + times_macro(torch, K, Q, sp, sxp, sharded)
+            + times_families(torch, kern))
     del sharded
     pick = {"bsr_matmul_stacked": "w_gate decode", "bsr_matmul": "head decode",
             "fake_quant": "fake_quant act prefill",

@@ -1,15 +1,20 @@
 """Carry weights made elsewhere into the port, from numpy and plain Python.
 
-* :func:`params_from_numpy` takes a model-params tree of numpy arrays
-  (``embed``, ``final_ln``, ``head``, ``layers`` with stacked leaves), as
+* :func:`params_from_numpy` takes a model-params tree of numpy arrays, as
   the reference's ``init_params`` output looks after ``np.asarray`` on
-  every leaf.
+  every leaf: ``embed``, ``final_ln``, ``head`` and ``layers`` with stacked
+  leaves (plus ``mm_proj`` for the vlm family); the hybrid family's
+  ``layers_body`` (leaves (n_super, attn_every, ...)), ``layers_tail``,
+  ``shared_attn`` and ``attn_gate``; the encdec family's ``enc_layers`` and
+  ``dec_layers`` (``self``/``cross``/``attn``/``mlp`` subtrees, ``{"g",
+  "b"}`` norms), ``pos_dec``, ``enc_ln`` and ``dec_ln``.
 * :func:`serving_params_from_numpy` takes a packed serving tree: ``embed``,
   ``final_ln``, ``head``/``head_t`` and ``layers`` (a list of per-layer
   dicts), where every packed projection is a dict
   ``{"packed": [{"blocks", "scales", "row_idx", "nnz", "density"}, ...],
-  "d_in", "d_out", "bits"}``. Serving the int8 packing carried across is
-  exact: no level is recomputed.
+  "d_in", "d_out", "bits"}``, and the vlm family's float ``mm_proj``.
+  Serving the int8 packing carried across is exact: no level is
+  recomputed.
 * :func:`train_state_from_numpy` takes a train state as the reference's
   ``init_train_state`` makes it (``{"params", "opt": {"m"[, "v"]},
   "step"}``) after ``np.asarray`` on every leaf, so both trainers can
@@ -58,15 +63,39 @@ def _tree(x, device: torch.device) -> Any:
     return tensor_from_numpy(x, device)
 
 
+def _leaves(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _stack_depths(cfg: ModelConfig) -> dict:
+    """Each stacked subtree of ``cfg``'s family and its leading shape."""
+    if cfg.family == "encdec":
+        return {"enc_layers": (cfg.enc_layers,),
+                "dec_layers": (cfg.n_layers,)}
+    if cfg.family == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_every
+        n_tail = cfg.n_layers - n_super * cfg.attn_every
+        return {"layers_body": (n_super, cfg.attn_every),
+                "layers_tail": (n_tail,)}
+    return {"layers": (cfg.n_layers,)}
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig,
                       device: DeviceLike = None) -> dict:
-    """Model params (numpy leaves) -> the port's params dict on ``device``."""
+    """Model params (numpy leaves) -> the port's params dict on ``device``,
+    each layer stack checked against ``cfg``'s depth."""
     dev = resolve_device(device)
     params = _tree(tree, dev)
-    for k in params["layers"].values():
-        if k.shape[0] != cfg.n_layers:
-            raise ValueError(f"layer stack of {k.shape[0]} != n_layers "
-                             f"{cfg.n_layers}")
+    for name, lead in _stack_depths(cfg).items():
+        for leaf in _leaves(params.get(name, {})):
+            if tuple(leaf.shape[:len(lead)]) != lead:
+                raise ValueError(f"{name}: layer stack of "
+                                 f"{tuple(leaf.shape[:len(lead)])} != {lead}"
+                                 f" for n_layers {cfg.n_layers}")
     return params
 
 
@@ -80,6 +109,7 @@ def serving_params_from_numpy(tree: dict, cfg: ModelConfig,
     return ServingParams(
         embed=_tree(tree["embed"], dev), final_ln=_tree(tree["final_ln"], dev),
         layers=_tree(tree["layers"], dev), head=_tree(tree.get("head"), dev),
+        mm_proj=_tree(tree.get("mm_proj"), dev),
         head_t=_tree(tree.get("head_t"), dev))
 
 

@@ -58,9 +58,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
       --compressed --tile 16x16 --mesh macro=4
 
-  # static-batch Engine (dense and ssm families)
+  # static-batch Engine (any family; the ssm, hybrid, encdec and vlm
+  # families have no batch-server path and take it without the flag)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
       --smoke --engine legacy --batch 4 --prompt-len 16 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --smoke --engine legacy
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+      --smoke --engine legacy
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \\
+      --smoke --engine legacy --compressed --tile 16x16 --runtime scan
 
   # a torch.profiler Chrome trace of the measured run, and the
   # speculative run audited against target-only scan decode
@@ -113,10 +120,19 @@ def _sync(dev: torch.device) -> None:
 
 
 def _legacy(args, cfg, params, dev, fns=None) -> np.ndarray:
+    """The static Engine over ``--batch`` prompts; the vlm family's patch
+    embeddings and the encdec family's frames are the frontend stubs, drawn
+    after the tokens from the same numpy stream as the reference CLI's."""
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
         dtype=torch.int32, device=dev)}
+    stub = {"vlm": ("patch_embeds", cfg.n_patches),
+            "encdec": ("frames", cfg.enc_seq)}.get(cfg.family)
+    if stub is not None:
+        batch[stub[0]] = torch.as_tensor(
+            rng.standard_normal((args.batch, stub[1], cfg.d_model)) * 0.02,
+            dtype=cfg.param_dtype, device=dev)
     eng = Engine(cfg, params, ServeConfig(max_new_tokens=args.new_tokens,
                                           temperature=args.temperature,
                                           seed=args.seed), fns=fns)

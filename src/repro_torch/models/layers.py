@@ -12,7 +12,10 @@ products and a float head on the paged pass run on the grouped-product
 kernel (``kernels/grouped_matmul.py``) for the same reason: its launch plan
 and every sum order in it follow the types, K and N, never the row count;
 prefill attention, norms and RoPE stay plain torch, as the reference leaves
-them to XLA.
+them to XLA. The hybrid family's ring-buffer decode
+(:func:`decode_attention_ring`) runs on the decode-attention kernel too;
+the encoder's bidirectional and the decoder's cross attention, LayerNorm
+and GELU are plain torch, as the reference writes them in jnp.
 Layouts follow the reference: (B, S, H, dh) activations and caches.
 """
 from __future__ import annotations
@@ -87,6 +90,15 @@ def rmsnorm_rows(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6
     x32 = x.float()
     var = ops.row_sum(x32 * x32)[..., None] / x32.shape[-1]
     return (x32 * torch.rsqrt(var + eps) * (1.0 + g.float())).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with bias in f32 (the biased variance), ``x.dtype`` out."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * g + b).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -170,6 +182,76 @@ def self_attention(p: dict, x: torch.Tensor, cfg, window: int = 0,
     return y, (k, v)
 
 
+def bidir_attention(p: dict, x: torch.Tensor, cfg, use_rope: bool = False
+                    ) -> torch.Tensor:
+    """Encoder self-attention, every query over every key (no mask)."""
+    b, s, _ = x.shape
+    nh = cfg.n_heads_eff
+    q, k, v = qkv_project(p, x, cfg, cfg.cim)
+    if use_rope:
+        pos = torch.arange(s, device=x.device)[None, :]
+        q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+    mask = torch.ones((1, 1, s, s), dtype=torch.bool, device=x.device)
+    o = attention_scores(q, _expand_kv(k, nh, cfg.n_heads),
+                         _expand_kv(v, nh, cfg.n_heads), mask)
+    return cim_matmul(o.reshape(b, s, -1), p["wo"], cfg.cim)
+
+
+def cross_attention(p: dict, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor], cfg
+                    ) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (B, T, KV,
+    dh): every query over every encoder position."""
+    b, s, _ = x.shape
+    nh = cfg.n_heads_eff
+    q = cim_matmul(x, p["wq"], cfg.cim).reshape(b, s, nh, cfg.dh)
+    k, v = enc_kv
+    mask = torch.ones((1, 1, s, k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    o = attention_scores(q, _expand_kv(k, nh, cfg.n_heads),
+                         _expand_kv(v, nh, cfg.n_heads), mask)
+    return cim_matmul(o.reshape(b, s, -1), p["wo"], cfg.cim)
+
+
+def _narrow_to(a: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``a`` in ``dt`` where that narrows it, else as it is: a widening
+    cast changes no value, and the decode-attention kernel widens bf16 K/V
+    itself."""
+    return a if torch.promote_types(a.dtype, dt) == dt else a.to(dt)
+
+
+def decode_attention_ring(p: dict, x1: torch.Tensor, kcache: torch.Tensor,
+                          vcache: torch.Tensor, pos: int, cfg,
+                          use_rope: bool = True) -> torch.Tensor:
+    """One-token decode over a contiguous cache (B, Smax, KV, dh) kept as a
+    ring: the token at absolute position ``pos`` writes its K/V into slot
+    ``pos % Smax`` in place and attends every valid slot, the first
+    ``min(pos + 1, Smax)`` (the reference's ``decode_attention(...,
+    ring=True)``). With ``Smax`` the window, that is a sliding window of
+    ``Smax`` keys; with ``Smax`` past every position, plain causal decode.
+    RoPE rotates each key at its absolute position before it is stored,
+    and attention does not depend on the order of its keys, so the slots
+    need no order. The attention runs on the decode-attention kernel with
+    the query at position ``min(pos, Smax - 1)`` and no window: its mask
+    ``slot <= min(pos, Smax - 1)`` is exactly ``slot < min(pos + 1,
+    Smax)``. Returns y (B, 1, D)."""
+    b = x1.shape[0]
+    smax = kcache.shape[1]
+    q, k, v = qkv_project(p, x1, cfg, cfg.cim)
+    if use_rope:
+        pp = torch.full((1, 1), pos, dtype=torch.long, device=x1.device)
+        q, k = rope(q, pp, cfg.rope_theta), rope(k, pp, cfg.rope_theta)
+    slot = pos % smax
+    kcache[:, slot] = k[:, 0].to(kcache.dtype)
+    vcache[:, slot] = v[:, 0].to(vcache.dtype)
+    last = torch.full((b,), min(pos, smax - 1), dtype=torch.long,
+                      device=x1.device)
+    o = ops.decode_attention(q, _narrow_to(kcache, x1.dtype),
+                             _narrow_to(vcache, x1.dtype), last, 0,
+                             cfg.n_heads)
+    return cim_matmul(o.reshape(b, 1, -1), p["wo"], cfg.cim)
+
+
 def decode_attention_multi(p: dict, xt: torch.Tensor, kview: torch.Tensor,
                            vview: torch.Tensor, pos: torch.Tensor, cfg,
                            window: int = 0, use_rope: bool = True):
@@ -193,10 +275,8 @@ def decode_attention_multi(p: dict, xt: torch.Tensor, kview: torch.Tensor,
     if use_rope:
         q, k = rope(q, pp, cfg.rope_theta), rope(k, pp, cfg.rope_theta)
     # the attention reads the views, and the step's K/V rounded to the
-    # view's type, as xt's type; a widening cast changes no value (the
-    # kernel widens bf16 K/V itself), so only a narrowing one is made
-    cast = lambda a: (a if torch.promote_types(a.dtype, xt.dtype) == xt.dtype
-                      else a.to(xt.dtype))
+    # view's type, as xt's type
+    cast = lambda a: _narrow_to(a, xt.dtype)
     k_new, v_new = cast(k.to(kview.dtype)), cast(v.to(vview.dtype))
     if isinstance(kview, KVShards):
         o = _attention_by_macro(q, KVShards(map(cast, kview.parts)),
@@ -237,6 +317,12 @@ def _attention_by_macro(q: torch.Tensor, kview: KVShards, vview: KVShards,
 def gated_mlp(p: dict, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
     h = F.silu(cim_matmul(x, p["w_gate"], cim)) * cim_matmul(x, p["w_up"],
                                                              cim)
+    return cim_matmul(h, p["w_down"], cim)
+
+
+def gelu_mlp(p: dict, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
+    """Whisper's MLP: GELU in its tanh form (``jax.nn.gelu``'s default)."""
+    h = F.gelu(cim_matmul(x, p["w_up"], cim), approximate="tanh")
     return cim_matmul(h, p["w_down"], cim)
 
 

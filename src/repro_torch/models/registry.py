@@ -1,13 +1,15 @@
-"""Architecture registry: family -> model functions, name -> ModelConfig
-(the configs ported so far)."""
+"""Architecture registry: family -> model functions, name -> ModelConfig."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Callable
 
-from . import transformer
+from . import encdec, transformer
 from .config import ModelConfig
+
+# the families the port serves: models.encdec's and models.transformer's
+FAMILIES = transformer.FAMILIES + ("encdec",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,19 +22,18 @@ class ModelFns:
 
 
 def model_fns(cfg: ModelConfig) -> ModelFns:
-    """The model functions of ``cfg``'s family (dense, moe and ssm so
-    far)."""
-    if cfg.family not in transformer.FAMILIES:
+    """The model functions of ``cfg``'s family: ``models.encdec``'s for
+    the encdec family, ``models.transformer``'s for the others."""
+    if cfg.family == "encdec":
+        mod = encdec
+    elif cfg.family in transformer.FAMILIES:
+        mod = transformer
+    else:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet "
-            f"({transformer.FAMILIES} are)")
-    return ModelFns(
-        init_params=transformer.init_params,
-        train_loss=transformer.train_loss,
-        prefill=transformer.prefill,
-        decode_step=transformer.decode_step,
-        init_cache=transformer.init_cache,
-    )
+            f"family {cfg.family!r} is not ported ({FAMILIES} are)")
+    return ModelFns(init_params=mod.init_params, train_loss=mod.train_loss,
+                    prefill=mod.prefill, decode_step=mod.decode_step,
+                    init_cache=mod.init_cache)
 
 
 def _module(arch: str):

@@ -1,16 +1,25 @@
-"""Decoder-only LM, dense, moe and ssm (mamba2) families: parameters, the
-full-sequence forward, and the static-batch serving entry points
-(``prefill``, ``init_cache``, ``pad_cache``, ``decode_step``). The moe
-family serves; its training is not ported yet (``train_loss`` refuses it).
+"""Decoder-only LM, dense, moe, vlm, ssm (mamba2) and hybrid (zamba2)
+families: parameters, the full-sequence forward, and the static-batch
+serving entry points (``prefill``, ``init_cache``, ``pad_cache``,
+``ring_cache``, ``decode_step``). The moe family serves; its training is
+not ported yet (``train_loss`` refuses it).
 
 Parameters keep the reference's pytree layout as a plain dict: ``embed``,
 ``final_ln``, ``head`` (absent with tied embeddings) and ``layers``, whose
-leaves are stacked along a leading layer axis. The layer loop runs on the
-host, where the reference scans. A decode cache is a dict of stacked
-tensors (dense and moe: ``k``/``v`` (L,B,S,KV,dh); ssm: ``conv``
-(L,B,W-1,C) and ``ssm`` (L,B,H,P,N)) plus ``pos``, a Python int;
-``decode_step`` updates its tensors in place, where the reference donates
-the cache to its jit.
+leaves are stacked along a leading layer axis; the vlm family adds
+``mm_proj``, the projector of the precomputed patch embeddings it
+prepends to the text. The hybrid family has ``layers_body`` (leaves
+(n_super, attn_every, ...): super-layers of ``attn_every`` mamba blocks,
+each followed by the one ``shared_attn`` block, attention and gated MLP,
+scaled by that super-layer's ``attn_gate``) and ``layers_tail`` (the
+mamba blocks left over, if any). The layer loop runs on the host, where
+the reference scans. A decode cache is a dict of stacked tensors (dense,
+moe and vlm: ``k``/``v`` (L,B,S,KV,dh); ssm: ``conv`` (L,B,W-1,C) and
+``ssm`` (L,B,H,P,N); hybrid: ``conv``/``ssm`` with leading (n_super,
+attn_every), ``conv_tail``/``ssm_tail``, and the shared block's ``k``/``v``
+(n_super,B,S,KV,dh), a ring of at most ``window`` slots) plus ``pos``, a
+Python int; ``decode_step`` updates its tensors in place, where the
+reference donates the cache to its jit.
 """
 from __future__ import annotations
 
@@ -25,8 +34,8 @@ from . import layers as L
 from . import ssm as SSM
 from .config import ModelConfig
 
-FAMILIES = ("dense", "moe", "ssm")  # the families ported so far
-ATTENTION = ("dense", "moe")  # the families with a KV cache
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+ATTENTION = ("dense", "moe", "vlm")  # the families with a KV cache a layer
 
 
 def _attn_layer_init(g: torch.Generator, cfg: ModelConfig, dtype,
@@ -96,17 +105,43 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["head"] = torch.randn((d, cfg.vocab_eff), generator=generator,
                                      dtype=dtype, device=dev) * 0.02
-    if cfg.family == "ssm":
-        def layer_init():
-            return {"ln": torch.zeros((d,), dtype=torch.float32, device=dev),
-                    **SSM.mamba_init(generator, cfg, dtype, dev)}
-    else:
-        def layer_init():
-            return _attn_layer_init(generator, cfg, dtype, dev)
-    per_layer = [layer_init() for _ in range(cfg.n_layers)]
-    params["layers"] = {k: torch.stack([p[k] for p in per_layer])
-                        for k in per_layer[0]}
+
+    def mamba_init():
+        return {"ln": torch.zeros((d,), dtype=torch.float32, device=dev),
+                **SSM.mamba_init(generator, cfg, dtype, dev)}
+
+    def stacked(init, n):
+        per_layer = [init() for _ in range(n)]
+        return {k: torch.stack([p[k] for p in per_layer])
+                for k in per_layer[0]}
+
+    if cfg.family == "hybrid":
+        n_super, n_tail = _hybrid_split(cfg)
+        body = stacked(mamba_init, n_super * cfg.attn_every)
+        params["layers_body"] = {
+            k: v.reshape(n_super, cfg.attn_every, *v.shape[1:])
+            for k, v in body.items()}
+        if n_tail:
+            params["layers_tail"] = stacked(mamba_init, n_tail)
+        params["shared_attn"] = _attn_layer_init(generator, cfg, dtype, dev)
+        params["attn_gate"] = torch.ones((n_super,), dtype=torch.float32,
+                                         device=dev)
+        return params
+    params["layers"] = stacked(
+        mamba_init if cfg.family == "ssm"
+        else lambda: _attn_layer_init(generator, cfg, dtype, dev),
+        cfg.n_layers)
+    if cfg.family == "vlm":
+        params["mm_proj"] = torch.randn(
+            (d, d), generator=generator, dtype=dtype, device=dev) * (
+                1.0 / d ** 0.5)
     return params
+
+
+def _hybrid_split(cfg: ModelConfig) -> Tuple[int, int]:
+    """(super-layers, tail mamba blocks) of the hybrid family."""
+    n_super = cfg.n_layers // cfg.attn_every
+    return n_super, cfg.n_layers - n_super * cfg.attn_every
 
 
 def _attn_mlp_body(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
@@ -144,8 +179,23 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
+    """The token embeddings; the vlm family prepends ``patch_embeds`` (B,
+    P, D) through ``mm_proj``, a plain product in the model dtype."""
     _check_family(cfg)
-    return L.embed(params["embed"], batch["tokens"], cfg.param_dtype)
+    x = L.embed(params["embed"], batch["tokens"], cfg.param_dtype)
+    if cfg.family == "vlm":
+        patches = batch["patch_embeds"].to(cfg.param_dtype)
+        patches = patches @ params["mm_proj"].to(patches.dtype)
+        x = torch.cat([patches, x], dim=1)
+    return x
+
+
+def _prompt_len(batch: dict, cfg: ModelConfig) -> int:
+    """The positions a prefill fills: the tokens and any patches."""
+    n = int(batch["tokens"].shape[1])
+    if cfg.family == "vlm":
+        n += int(batch["patch_embeds"].shape[1])
+    return n
 
 
 def _layer_kind_arrays(cfg: ModelConfig) -> Tuple[List[int], List[float]]:
@@ -209,6 +259,9 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
             aux = aux if a is None else aux + a
             parts.append(kv)
         names = ("k", "v")
+    elif cfg.family == "hybrid":
+        x, cache = _hybrid_forward(params, x, cfg, collect_cache)
+        return L.rmsnorm(x, params["final_ln"]), aux, cache
     else:  # ssm
         body = _maybe_remat(_mamba_body, cfg, x)
         for i in range(cfg.n_layers):
@@ -222,15 +275,74 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
     return L.rmsnorm(x, params["final_ln"]), aux, cache
 
 
+def _shared_block(shared: dict, x: torch.Tensor, gate: torch.Tensor,
+                  cfg: ModelConfig, positions: torch.Tensor):
+    """The hybrid family's shared attention + gated MLP block at one
+    super-layer, both halves scaled by its gate; the attention windowed by
+    ``cfg.window``. Returns (x, (k, v))."""
+    g = gate.to(x.dtype)
+    attn, kv = L.self_attention(shared, L.rmsnorm(x, shared["ln1"]), cfg,
+                                window=cfg.window, positions=positions)
+    x = x + g * attn
+    x = x + g * L.gated_mlp(shared, L.rmsnorm(x, shared["ln2"]), cfg.cim)
+    return x, kv
+
+
+def _body_layer(params: dict, s: int, j: int) -> dict:
+    return {k: v[s, j] for k, v in params["layers_body"].items()}
+
+
+def _tail_layer(params: dict, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers_tail"].items()}
+
+
+def _hybrid_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                    collect_cache: bool):
+    """The hybrid family's full-sequence forward: each super-layer's mamba
+    blocks, then the shared block; then the tail's mamba blocks. Returns
+    (x, cache-or-None)."""
+    n_super, n_tail = _hybrid_split(cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    mamba = _maybe_remat(_mamba_body, cfg, x)
+    shared = _maybe_remat(_shared_block, cfg, x)
+    tails, kvs, tail_tails = [], [], []
+    for s in range(n_super):
+        row = []
+        for j in range(cfg.attn_every):
+            x, t = mamba(_body_layer(params, s, j), x, cfg)
+            row.append(t)
+        tails.append(row)
+        x, kv = shared(params["shared_attn"], x, params["attn_gate"][s], cfg,
+                       positions)
+        kvs.append(kv)
+    for i in range(n_tail):
+        x, t = mamba(_tail_layer(params, i), x, cfg)
+        tail_tails.append(t)
+    if not collect_cache:
+        return x, None
+    grid = lambda j: torch.stack([torch.stack([t[j] for t in row])
+                                  for row in tails])
+    cache = {"conv": grid(0), "ssm": grid(1),
+             "k": torch.stack([kv[0] for kv in kvs]),
+             "v": torch.stack([kv[1] for kv in kvs])}
+    if n_tail:
+        cache["conv_tail"] = torch.stack([t[0] for t in tail_tails])
+        cache["ssm_tail"] = torch.stack([t[1] for t in tail_tails])
+    return x, cache
+
+
 def train_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Next-token CE (+ 0.01 aux, 0 for these families). batch: tokens
-    (B,S) [, loss_mask (B,S)]; padded vocab columns are masked before the
-    softmax. The moe family's training is not ported yet."""
+    (B,S) [, patch_embeds (vlm), loss_mask (B,S)]; padded vocab columns
+    are masked before the softmax. The moe family's training is not
+    ported yet."""
     if cfg.family == "moe":
         raise NotImplementedError(
             "train_loss: the moe family serves but does not train yet "
             "(its aux loss and expert gradients are not ported)")
     hidden, aux, _ = forward_hidden(params, batch, cfg)
+    if cfg.family == "vlm":  # the patches prepend; labels cover text only
+        hidden = hidden[:, batch["patch_embeds"].shape[1]:, :]
     logits = L.logits_out(_head(params), hidden, cfg.cim)
     if cfg.vocab_eff != cfg.vocab:
         pad = torch.arange(cfg.vocab_eff, device=logits.device) >= cfg.vocab
@@ -247,7 +359,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig):
     hidden, _, cache = forward_hidden(params, batch, cfg, collect_cache=True)
     logits = L.logits_out(_head(params), hidden[:, -1:, :],
                           cfg.cim)[:, 0, :cfg.vocab]
-    cache["pos"] = int(batch["tokens"].shape[1])
+    cache["pos"] = _prompt_len(batch, cfg)
     return logits, cache
 
 
@@ -263,10 +375,46 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
                  cfg.dh)
         return {"k": z(*shape), "v": z(*shape), "pos": 0}
     di, n, n_h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    return {"conv": z(cfg.n_layers, batch_size, cfg.conv_width - 1,
-                      di + 2 * n),
-            "ssm": z(cfg.n_layers, batch_size, n_h, di // n_h, n),
-            "pos": 0}
+    conv = (batch_size, cfg.conv_width - 1, di + 2 * n)
+    state = (batch_size, n_h, di // n_h, n)
+    if cfg.family == "ssm":
+        return {"conv": z(cfg.n_layers, *conv),
+                "ssm": z(cfg.n_layers, *state), "pos": 0}
+    n_super, n_tail = _hybrid_split(cfg)
+    kv = (n_super, batch_size, ring_len(cfg, max_len), cfg.n_kv_heads_eff,
+          cfg.dh)
+    cache = {"conv": z(n_super, cfg.attn_every, *conv),
+             "ssm": z(n_super, cfg.attn_every, *state),
+             "k": z(*kv), "v": z(*kv), "pos": 0}
+    if n_tail:
+        cache["conv_tail"] = z(n_tail, *conv)
+        cache["ssm_tail"] = z(n_tail, *state)
+    return cache
+
+
+def ring_len(cfg: ModelConfig, max_len: int) -> int:
+    """The hybrid family's shared-attention KV ring for ``max_len``
+    positions: the window, or all of them when they fit in it (or there is
+    no window)."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
+def ring_cache(cache: dict, kv_len: int) -> dict:
+    """The hybrid family's prefill cache as the decode ring of ``kv_len``
+    slots, position p's K/V in slot ``p % kv_len``: a prompt that fits is
+    padded; of a longer one (past the window) the last ``kv_len`` positions
+    are kept, which are exactly those the next token's window reaches. The
+    reference keeps the whole prompt there and its decode then attends
+    without the window, overwriting the prompt's last position."""
+    s = cache["k"].shape[2]
+    if s <= kv_len:
+        return pad_cache(cache, kv_len)
+    out = dict(cache)
+    for key in ("k", "v"):
+        last = cache[key][:, :, s - kv_len:]
+        out[key] = torch.roll(last, (s - kv_len) % kv_len, dims=2
+                              ).contiguous()
+    return out
 
 
 def pad_cache(cache: dict, max_len: int) -> dict:
@@ -288,16 +436,13 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     if cfg.family in ATTENTION:
         x = decode_layers_dense(
             (_layer(params, i) for i in range(cfg.n_layers)), x, cache, cfg)
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode(params, cache, x, cfg)
     else:
         _check_family(cfg)
         for i in range(cfg.n_layers):
-            p = _layer(params, i)
-            y, conv, h = SSM.mamba_decode_step(
-                p, L.rmsnorm(x, p["ln"]), cache["conv"][i], cache["ssm"][i],
-                cfg)
-            cache["conv"][i].copy_(conv)
-            cache["ssm"][i].copy_(h)
-            x = x + y
+            x = _mamba_step(_layer(params, i), x, cache["conv"][i],
+                            cache["ssm"][i], cfg)
     cache["pos"] += 1
     x = L.rmsnorm(x, params["final_ln"])
     return L.logits_out(_head(params), x, cfg.cim)[:, 0, :cfg.vocab], cache
@@ -305,7 +450,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
 
 def decode_layers_dense(layers, x: torch.Tensor, cache: dict,
                         cfg: ModelConfig) -> torch.Tensor:
-    """The dense and moe families' decode over per-layer param dicts
+    """The dense, moe and vlm families' decode over per-layer param dicts
     (``layers``, one per layer, in order): x (B, 1, D) at position
     ``cache["pos"]``, each layer's new K/V written into the contiguous
     cache in place.
@@ -323,4 +468,45 @@ def decode_layers_dense(layers, x: torch.Tensor, cache: dict,
         cache["v"][i, :, pos] = v[:, 0].to(cache["v"].dtype)
         x = x + attn
         x = x + mlp(p, L.rmsnorm(x, p["ln2"]), cfg)[0]
+    return x
+
+
+def _mamba_step(p: dict, x: torch.Tensor, conv: torch.Tensor,
+                state: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One mamba2 layer's decode step with its pre-norm and residual; the
+    layer's conv tail and SSM state are updated in place."""
+    y, c, h = SSM.mamba_decode_step(p, L.rmsnorm(x, p["ln"]), conv, state,
+                                    cfg)
+    conv.copy_(c)
+    state.copy_(h)
+    return x + y
+
+
+def _hybrid_decode(params: dict, cache: dict, x: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The hybrid family's decode step: the mamba blocks' states in place,
+    the shared block's attention over its KV ring
+    (``layers.decode_attention_ring``, on the decode-attention kernel).
+    The ring must not outgrow the window (:func:`ring_cache`)."""
+    n_super, n_tail = _hybrid_split(cfg)
+    pos = cache["pos"]
+    if cfg.window and cache["k"].shape[2] > cfg.window:
+        raise ValueError(
+            f"the shared-attention cache holds {cache['k'].shape[2]} "
+            f"positions, more than the window {cfg.window}: make it the "
+            "decode ring with ring_cache first")
+    shared = params["shared_attn"]
+    for s in range(n_super):
+        for j in range(cfg.attn_every):
+            x = _mamba_step(_body_layer(params, s, j), x,
+                            cache["conv"][s, j], cache["ssm"][s, j], cfg)
+        g = params["attn_gate"][s].to(x.dtype)
+        x = x + g * L.decode_attention_ring(
+            shared, L.rmsnorm(x, shared["ln1"]), cache["k"][s],
+            cache["v"][s], pos, cfg)
+        x = x + g * L.gated_mlp(shared, L.rmsnorm(x, shared["ln2"]),
+                                cfg.cim)
+    for i in range(n_tail):
+        x = _mamba_step(_tail_layer(params, i), x, cache["conv_tail"][i],
+                        cache["ssm_tail"][i], cfg)
     return x

@@ -47,19 +47,21 @@ from ..train import checkpoint as ckpt
 # family's expert stacks are 3-D and stay float, as does its router)
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
-SUPPORTED_FAMILIES = ("dense", "moe")
+SUPPORTED_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass
 class ServingParams:
     """Per-layer serving weights. ``head_t`` is the tied-embeddings head
-    (``embed.T``), built once; None whenever an explicit ``head`` exists."""
+    (``embed.T``), built once; None whenever an explicit ``head`` exists.
+    ``mm_proj`` is the vlm family's patch projector, kept in float."""
 
     embed: Any
     final_ln: Any
     layers: List[dict]
     head: Any = None
     head_t: Any = None
+    mm_proj: Any = None
 
     def layer_params(self) -> List[dict]:
         return self.layers
@@ -96,7 +98,7 @@ def from_params(cfg: ModelConfig, params: dict) -> ServingParams:
     head = params.get("head")
     return ServingParams(
         embed=params["embed"], final_ln=params["final_ln"], layers=layers,
-        head=head,
+        head=head, mm_proj=params.get("mm_proj"),
         head_t=None if head is not None else params["embed"].T.contiguous())
 
 
@@ -197,7 +199,7 @@ def shard(sp: ServingParams, mesh) -> ServingParams:
         embed=sp.embed, final_ln=sp.final_ln,
         layers=[{k: maybe(v) for k, v in p.items()} for p in sp.layers],
         head=maybe(sp.head) if sp.head is not None else None,
-        head_t=sp.head_t)
+        head_t=sp.head_t, mm_proj=sp.mm_proj)
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +260,8 @@ def _strip_placement(sp: ServingParams) -> ServingParams:
     return ServingParams(
         embed=sp.embed, final_ln=sp.final_ln,
         layers=[{k: strip(v) for k, v in p.items()} for p in sp.layers],
-        head=strip(sp.head) if sp.head is not None else None, head_t=None)
+        head=strip(sp.head) if sp.head is not None else None, head_t=None,
+        mm_proj=sp.mm_proj)
 
 
 def save_artifact(path: str, sp: ServingParams, cfg: ModelConfig,
@@ -385,9 +388,10 @@ def _mlp_tokenwise(p: dict, h: torch.Tensor, cfg: ModelConfig
 
 
 def prefill_hidden(sp, batch: dict, cfg: ModelConfig):
-    """Full-sequence forward. Returns (hidden (B,S,D), cache k/v
-    (L,B,S,KV,dh))."""
-    x = transformer._embed_inputs({"embed": sp.embed}, batch, cfg)
+    """Full-sequence forward (the vlm family's patches prepended through
+    ``mm_proj``). Returns (hidden (B,S,D), cache k/v (L,B,S,KV,dh))."""
+    x = transformer._embed_inputs({"embed": sp.embed, "mm_proj": sp.mm_proj},
+                                  batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     windows, thetas = transformer._layer_kind_arrays(cfg)
     ks, vs = [], []
@@ -402,18 +406,19 @@ def prefill_hidden(sp, batch: dict, cfg: ModelConfig):
 
 def prefill(sp, batch: dict, cfg: ModelConfig):
     """Engine-signature prefill: (last-position logits (B, V), contiguous
-    cache with ``pos`` the prompt length)."""
+    cache with ``pos`` the prompt length, the vlm family's patches
+    included)."""
     hidden, cache = prefill_hidden(sp, batch, cfg)
     logits = L.logits_out(_head(sp), hidden[:, -1:, :],
                           cfg.cim)[:, 0, : cfg.vocab]
-    cache["pos"] = int(batch["tokens"].shape[1])
+    cache["pos"] = transformer._prompt_len(batch, cfg)
     return logits, cache
 
 
 def decode_step(sp, cache: dict, tokens: torch.Tensor, cfg: ModelConfig):
     """Engine-signature decode over a contiguous cache with a scalar
     ``pos``, updated in place; the same math as ``transformer.decode_step``
-    (attention families), layer by layer over ``sp.layer_params()``."""
+    (dense, moe and vlm), layer by layer over ``sp.layer_params()``."""
     x = L.embed(sp.embed, tokens, cfg.param_dtype)
     x = transformer.decode_layers_dense(sp.layer_params(), x, cache, cfg)
     cache["pos"] += 1

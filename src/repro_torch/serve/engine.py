@@ -1,8 +1,10 @@
 """Static-batch serving engine: prefill + decode with KV/state caches.
 
-:class:`Engine` serves the dense, moe and ssm families: greedy or temperature
+:class:`Engine` serves every family of the registry: greedy or temperature
 sampling, per-sequence EOS tracking (a finished row keeps decoding but its
-output is frozen), the cache updated in place by every decode step. For
+output is frozen), the cache updated in place by every decode step. Pass
+``fns=serve.deployed.model_fns(cfg)`` (with ``ServingParams`` as
+``params``) to serve BSR-compressed weights through the same loop. For
 request-level continuous batching see ``serve.server.BatchServer``.
 """
 from __future__ import annotations
@@ -44,10 +46,10 @@ class Engine:
                  fns: Optional[registry.ModelFns] = None):
         """``params`` is what ``fns`` consumes (the registry's model params
         by default). ``scfg`` defaults to a fresh ServeConfig per engine."""
-        if cfg.family not in transformer.FAMILIES:
+        if cfg.family not in registry.FAMILIES:
             raise NotImplementedError(
-                f"Engine serves the {transformer.FAMILIES} families; "
-                f"{cfg.family!r} is not ported yet")
+                f"Engine serves the {registry.FAMILIES} families, not "
+                f"{cfg.family!r}")
         self.cfg = cfg
         self.params = params
         self.scfg = scfg if scfg is not None else ServeConfig()
@@ -56,14 +58,17 @@ class Engine:
     @torch.no_grad()
     def generate(self, batch: dict, max_new_tokens: Optional[int] = None
                  ) -> np.ndarray:
-        """batch: ``tokens`` (B, S) on the params' device. Returns
-        (B, max_new_tokens) generated ids; a row's ids after its EOS are 0."""
+        """batch: ``tokens`` (B, S) [+ ``patch_embeds`` (vlm) / ``frames``
+        (encdec)] on the params' device. Returns (B, max_new_tokens)
+        generated ids; a row's ids after its EOS are 0."""
         scfg = self.scfg
         n_new = max_new_tokens or scfg.max_new_tokens
         bsz, s = batch["tokens"].shape
+        total = s + n_new
+        if self.cfg.family == "vlm":
+            total += batch["patch_embeds"].shape[1]
         logits, cache = self.fns.prefill(self.params, batch, self.cfg)
-        if self.cfg.family in transformer.ATTENTION:
-            cache = transformer.pad_cache(cache, s + n_new)
+        cache = self._decode_cache(cache, total)
         gen = None
         if scfg.temperature > 0.0:
             gen = torch.Generator(device=logits.device).manual_seed(scfg.seed)
@@ -80,6 +85,20 @@ class Engine:
                                                  self.cfg)
             tok = self._sample(logits, gen)
         return out
+
+    def _decode_cache(self, cache: dict, total: int) -> dict:
+        """The prefill's cache made ready for ``total`` positions: the
+        attention families' and the encdec decoder's self K/V padded (the
+        encdec cross K/V carried as they are); the hybrid family's shared
+        K/V as its ring of at most the window
+        (``transformer.ring_cache``)."""
+        family = self.cfg.family
+        if family == "ssm":
+            return cache
+        if family == "hybrid":
+            return transformer.ring_cache(
+                cache, transformer.ring_len(self.cfg, total))
+        return transformer.pad_cache(cache, total)
 
     def _sample(self, logits: torch.Tensor,
                 gen: Optional[torch.Generator]) -> torch.Tensor:

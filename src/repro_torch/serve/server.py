@@ -166,6 +166,10 @@ class BatchServer:
             raise ValueError(
                 f"draft/spec are speculative-decode arguments but engine="
                 f"{engine!r} - pass engine='spec' to use them")
+        if cfg.family == "vlm":
+            raise NotImplementedError(
+                "BatchServer serves token-only requests; vlm prefill needs "
+                "per-request patch embeddings (use serve.Engine)")
         deployed._check_family(cfg)
         self.device = resolve_device(device)
         if sp.embed.device.type != self.device.type:

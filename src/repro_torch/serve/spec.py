@@ -218,7 +218,8 @@ def draft_serving(cfg: ModelConfig, sp: DP.ServingParams,
         layers.append(q)
     head = pack(sp.head) if sp.head is not None else None
     return DP.ServingParams(embed=sp.embed, final_ln=sp.final_ln,
-                            layers=layers, head=head, head_t=sp.head_t)
+                            layers=layers, head=head, head_t=sp.head_t,
+                            mm_proj=sp.mm_proj)
 
 
 # ---------------------------------------------------------------------------

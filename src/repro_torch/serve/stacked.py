@@ -46,7 +46,8 @@ class StackedParams:
     """Layer-stacked serving weights. ``dense`` holds stacked (L, ...)
     leaves that stay on the float path (norm gains, any unpacked
     projection); ``packed`` maps projection name -> StackedWeight;
-    ``layer_ids`` is ``arange(L)`` as int32 on the device."""
+    ``layer_ids`` is ``arange(L)`` as int32 on the device; ``mm_proj`` the
+    vlm family's float patch projector."""
 
     embed: Any
     final_ln: Any
@@ -55,6 +56,7 @@ class StackedParams:
     layer_ids: torch.Tensor
     head: Any = None
     head_t: Any = None
+    mm_proj: Any = None
 
     @property
     def n_layers(self) -> int:
@@ -104,7 +106,7 @@ def stack(sp: DP.ServingParams) -> StackedParams:
                              device=sp.embed.device)
     return StackedParams(embed=sp.embed, final_ln=sp.final_ln, dense=dense,
                          packed=packed, layer_ids=layer_ids, head=sp.head,
-                         head_t=sp.head_t)
+                         head_t=sp.head_t, mm_proj=sp.mm_proj)
 
 
 def _layers_of_one_tensor(vs: List[torch.Tensor]):

@@ -193,10 +193,6 @@ def tree_from_spec(spec: Any, leaves: List[np.ndarray],
                                spec["d_out"], spec["bits"])
     if t == "serving_params":
         f = dict(zip(_SERVING_FIELDS, (rec(s) for s in spec["fields"])))
-        if f.pop("mm_proj") is not None:
-            raise NotImplementedError(
-                "this artifact holds a vlm projector (mm_proj); the vlm "
-                "family is not ported yet")
         return _serving_cls()(**f)
     raise ValueError(f"unknown tree-spec node type {t!r}")
 

@@ -180,7 +180,8 @@ def _verify_equals_steps(tcfg, tsp, pos, t=4, sv=48, seed=5):
 
 
 @pytest.mark.parametrize("arch", DENSE + ("phi3.5-moe-42b-a6.6b",
-                                          "grok-1-314b"))
+                                          "grok-1-314b", "zamba2-1.2b",
+                                          "whisper-tiny", "llava-next-34b"))
 def test_config_fields_and_layer_kinds_equal_reference(arch):
     """Each ported config equals the reference's field for field (at full
     size and smoke size), and so do the per-layer windows and thetas."""

@@ -581,3 +581,46 @@ def test_kernel_matches_plain_on_gpu(dtype, kv_dtype):
                                 v.index_put((rows, pp), vn), pos))
         n += 2
     assert DA.LAUNCHES == n0 + n
+
+
+@pytest.mark.cuda
+def test_ring_mapping_on_the_kernel_matches_plain_on_gpu():
+    """The hybrid family's ring decode (``layers.decode_attention_ring``:
+    the step's K/V written at slot pos % Smax first, then one launch with
+    the query at min(pos, Smax - 1), no window, no k_new) on the card
+    against the same function over the plain version, before, at and past
+    the wrap of the zamba2 smoke config's 64-slot ring: f32 within 1e-5
+    and bf16 within DA_TOL of max |plain|, the written cache bit for bit,
+    one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.models import layers as TL
+    from repro_torch.models import registry as TR
+    from repro_torch.models import transformer as TT
+    cfg = TR.get_smoke_config("zamba2-1.2b", dtype="float32")
+    shared = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")["shared_attn"]
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, DA_TOL)):
+        p = {k: (v if k.startswith("ln") else v.to(dtype)).cuda()
+             for k, v in shared.items()}
+        gen = torch.Generator().manual_seed(1)
+        for pos in (10, 63, 64, 150):
+            x1 = torch.randn((2, 1, cfg.d_model), generator=gen).to(dtype)
+            kc, vc = (torch.randn((2, cfg.window, cfg.n_kv_heads, cfg.dh),
+                                  generator=gen).to(dtype) for _ in range(2))
+            x1, kc, vc = x1.cuda(), kc.cuda(), vc.cuda()
+            caches = [(kc.clone(), vc.clone()) for _ in range(2)]
+            n0 = DA.LAUNCHES
+            got = TL.decode_attention_ring(p, x1, *caches[0], pos, cfg)
+            assert DA.LAUNCHES == n0 + 1
+            saved = DA.decode_attention
+            DA.decode_attention = DA.decode_attention_plain
+            try:
+                want = TL.decode_attention_ring(p, x1, *caches[1], pos, cfg)
+            finally:
+                DA.decode_attention = saved
+            assert torch.equal(caches[0][0], caches[1][0])
+            assert torch.equal(caches[0][1], caches[1][1])
+            scale = max(1.0, float(want.float().abs().max()))
+            assert float((got.float() - want.float()).abs().max()) <= \
+                tol * scale, (dtype, pos)

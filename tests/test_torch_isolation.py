@@ -107,3 +107,13 @@ def test_gateway_slice_modules_are_walked():
     for mod in ("gateway", "gateway.tenant", "gateway.admission",
                 "gateway.gateway", "obs.history"):
         assert f"repro_torch.{mod}" in names, mod
+
+
+def test_family_slice_modules_are_walked():
+    """The import walk above reaches the hybrid, encdec and vlm slice's
+    modules: the encoder-decoder model and the three configs."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    for mod in ("models.encdec", "models.transformer", "configs.zamba2_1_2b",
+                "configs.whisper_tiny", "configs.llava_next_34b"):
+        assert f"repro_torch.{mod}" in names, mod

@@ -273,7 +273,7 @@ def test_engine_eos_freezes_rows_and_samples_from_its_seed():
 
 
 def test_engine_refuses_unported_families():
-    cfg = TR.get_smoke_config("yi-6b", family="hybrid")
+    cfg = TR.get_smoke_config("yi-6b", family="rwkv")
     with pytest.raises(NotImplementedError):
         Engine(cfg, {})
     with pytest.raises(NotImplementedError):
