@@ -115,11 +115,12 @@ needed. Phases (any failure exits non-zero):
               decode and prefill rows, and kernel_bench's shape, every
               launch on the kernel's 16-byte path;
   6. cli    - the serving CLI, repro_torch.launch.serve.main, in-process:
-              full-width, full-depth yi-6b packed, saved as an artifact and
-              served on the loop runtime; booted from the artifact (no
-              packing; the booted packing equal to the saved one) and served
-              on the scan runtime with the same tokens; the legacy Engine
-              over the stacked and the per-layer packing, equal tokens;
+              full-width yi-6b cut to CLI_YI_LAYERS layers packed, saved
+              as an artifact and served on the loop runtime; booted from
+              the artifact (no packing; the booted packing equal to the
+              saved one) and served on the scan runtime with the same
+              tokens; the legacy Engine over the stacked and the
+              per-layer packing, equal tokens;
               full-width, full-depth mamba2-780m (QAT) through the Engine
               fallback; the booted artifact once more with --spec
               draft=layerskip (no second packing), --trace-out and
@@ -250,10 +251,10 @@ needed. Phases (any failure exits non-zero):
               unsharded kernel, each shard planned as the whole; a
               profile of the unsharded and the sharded scan (device busy
               share, the gather and un-permute kernels). Its CLI part runs
-              inside phase 6: the 32-layer artifact booted with --mesh
-              macro=MACRO_CLI on the scan runtime, tokens equal the
-              unsharded booted scan run's, launch counts exact. Phase 8
-              times the sharded call (times_macro).
+              inside phase 6: the CLI_YI_LAYERS-layer artifact booted
+              with --mesh macro=MACRO_CLI on the scan runtime, tokens
+              equal the unsharded booted scan run's, launch counts
+              exact. Phase 8 times the sharded call (times_macro).
  14. gateway - run after phase 13: the multi-tenant gateway
               (repro_torch.gateway) on the card. Two tenants of phase 3's
               4-layer packing behind one shared pool of GW_BLOCKS blocks:
@@ -301,6 +302,30 @@ needed. Phases (any failure exits non-zero):
               every step, and save_artifact -> load_artifact serving the
               same tokens. Tokens/s, prefill seconds and decode-step p50
               of each; at most FAMILIES_BUDGET_S seconds.
+ 16. train-families - run after phase 15: MARS QAT training (w8a8, group
+              lasso 1e-5, f32, seed 0) of the four families phase 10 does
+              not train, at full width, under
+              torch.use_deterministic_algorithms(True), each run with the
+              launch counts at 0 and read after: phi3.5-moe cut to
+              TRAIN_PHI_LAYERS layer through the CLI with SGDM (a SIGTERM
+              after step TRAIN_PHI_STOP and --resume reaching the straight
+              run's parameters and moments bit for bit), zamba2-1.2b cut
+              to TRAIN_ZAMBA_LAYERS layers (two uses of the shared block)
+              through the CLI, whisper-tiny at full size and
+              llava-next-34b cut to TRAIN_LLAVA_LAYERS layers through
+              trainer.make_train_step over stub frames / patches. Each:
+              one step's gradients against the plain path (fake_quant
+              swapped: bit for bit; in f32 dense mode every kernel
+              swapped, the SSD kernels and the grouped product, within
+              TRAIN_GRAD_TOL with the moe routing equal; every router,
+              expert, mm_proj and shared-block leaf reached), the loss
+              finite and falling, launch counts exact (train_launches:
+              fake_quant and its backward, ssd_intra and its backward,
+              the grouped product 4 a moe layer a forward, twice under
+              remat; its backward on torch.bmm), step ms, tokens/s, peak
+              memory and one step profiled; at most
+              TRAIN_FAMILIES_BUDGET_S seconds. Phase 8 times the grouped
+              product at phi3.5-moe's training shapes (GM_TRAIN_SHAPES).
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -420,6 +445,31 @@ TRAIN_MAMBA = ["--arch", "mamba2-780m", "--batch", str(TRAIN_MAMBA_BATCH),
                "2", *TRAIN_COMMON]
 TRAIN_MAMBA_STOP = 5
 TRAIN_GRAD_TOL = 1e-3
+# phase 16 (train-families): QAT (w8a8, lasso 1e-5, f32, seed 0) training
+# of the families phase 10 does not train, at full width. phi3.5-moe cut
+# from 32 to 1 layer (16 experts of 4096 x 6400, top-2: ~1.56 G
+# parameters, 6.3 GB, three times that with SGDM's moment and the
+# gradient) through the CLI with SGDM, 8 steps of 2 x 256 tokens, a
+# SIGTERM after step 4 and --resume (~12.5 GB checkpoints); zamba2-1.2b
+# cut from 38 to 14 layers (2 super-layers of 6 mamba2 blocks, each
+# followed by the shared block, so its gradient sums over two uses, then
+# 2 tail blocks; ~0.56 G parameters) through the CLI with AdamW, 8 steps
+# of 2 x 512; whisper-tiny at full size and llava-next-34b cut from 60 to
+# 2 layers (~2.1 G parameters, ~33 GB with AdamW) through make_train_step
+# (the CLI feeds tokens alone): (batch, tokens, steps) beside stub frames
+# (batch, 1500, 384) / patches (batch, 576, 7168) from a seeded generator
+TRAIN_PHI_LAYERS = 1
+TRAIN_PHI_STOP = 4
+TRAIN_PHI = ["--arch", "phi3.5-moe-42b-a6.6b", "--batch", "2", "--seq",
+             "256", "--steps", "8", "--log-every", "2",
+             *["sgdm" if a == "adamw" else a for a in TRAIN_COMMON]]
+TRAIN_ZAMBA_LAYERS = 14
+TRAIN_ZAMBA = ["--arch", "zamba2-1.2b", "--batch", "2", "--seq", "512",
+               "--steps", "8", "--log-every", "2", *TRAIN_COMMON]
+TRAIN_WHISPER = (4, 64, 20)
+TRAIN_LLAVA = (2, 64, 8)
+TRAIN_LLAVA_LAYERS = 2
+TRAIN_FAMILIES_BUDGET_S = 150
 
 # the cnn phase (11): the paper's VGG16-CIFAR and ResNet18-CIFAR at full
 # width with cim_config()'s defaults (QAT w8a4, alpha = N = 16, lambda_g
@@ -480,10 +530,13 @@ QM_ALIGNED = {(256, 1024, 1024), (N_SLOTS, 4096, 11008),
               (PROMPT_ROWS, 4096, 11008), (N_SLOTS, 11008, 4096),
               (PROMPT_ROWS, 11008, 4096)}
 
-# the cli phase's yi-6b runs (full width and depth): packing flags, then
-# the batch trace and the legacy batch
+# the cli phase's yi-6b runs (full width, depth cut to CLI_YI_LAYERS of 32
+# by wrapping registry.get_config: the pack is host numpy, 65-98 s at 32
+# layers on the H100 machine's host, and the whole run must end within
+# 1200 s): packing flags, then the batch trace and the legacy batch
 CLI_YI = ["--arch", "yi-6b", "--dtype", "bfloat16", "--compressed",
           "--tile", "128x128", "--target-sparsity", "0.6"]
+CLI_YI_LAYERS = 8
 CLI_BATCH = ["--requests", "8", "--prompt-len", "128", "--new-tokens", "32",
              "--slots", "4", "--block-size", "16", "--kv-blocks", "256"]
 CLI_LEGACY = ["--engine", "legacy", "--batch", "4", "--prompt-len", "128",
@@ -492,7 +545,7 @@ CLI_LEGACY = ["--engine", "legacy", "--batch", "4", "--prompt-len", "128",
 # config's cim_mode, so the cli phase sets it in code (see cli)
 CLI_MAMBA = ["--arch", "mamba2-780m", "--dtype", "bfloat16", "--batch", "4",
              "--prompt-len", "1024", "--new-tokens", "8"]
-# the cli phase's speculative run over the booted 32-layer artifact
+# the cli phase's speculative run over the booted artifact
 CLI_SPEC = ["--runtime", "scan", "--spec",
             f"draft=layerskip,keep={SPEC_KEEP},k={SPEC_K}"]
 # the sched phase (9): the CLI's runs at full width cut to SCHED_LAYERS
@@ -562,14 +615,24 @@ GM_EDGE_ROWS = (47, 48, 49, 63, 64, 65)
 GM_EDGE_SHAPES = ("phi3.5-moe w_gate decode", "gemma3 head verify")
 # phase 8's routed decode: N_SLOTS tokens, top-2 of phi3.5-moe's 16 experts
 GM_ROUTED = ("phi3.5-moe w_gate decode", "phi3.5-moe w_down decode")
+# phase 8 at phase 16's phi3.5-moe shapes: QAT in f32 multiplies f32
+# expert inputs by f32 stacks (the CUDA-core route), 2 token groups of 256
+# a step, so 2 x 40 capacity rows an expert, filled as a uniform top-2
+# routing of the 512 tokens fills them; and the router over all 512
+GM_TRAIN_SHAPES = [
+    ("phi3.5-moe w_gate train", 16, 80, 4096, 6400, _F32, _F32),
+    ("phi3.5-moe w_down train", 16, 80, 6400, 4096, _F32, _F32),
+    ("phi3.5-moe router train", 1, 512, 4096, 16, _F32, _F32),
+]
+GM_TRAIN_GROUPS, GM_TRAIN_GROUP, GM_TRAIN_CAP = 2, 256, 40
 
 
 # phase 13 (macro): phase 3's packing over a macro mesh on the one card, at
 # MACROS macros on the loop and scan runtimes and at MACRO_SPEC on the spec
-# engine (reprune, both tiers sharded); the cli phase boots its 32-layer
-# artifact with --mesh macro=MACRO_CLI. A sharded call's device time is
-# split into the kernel's launches, the gather (torch.cat) and the
-# un-permute (index_select) by these symbols
+# engine (reprune, both tiers sharded); the cli phase boots its artifact
+# (CLI_YI_LAYERS layers) with --mesh macro=MACRO_CLI. A sharded call's
+# device time is split into the kernel's launches, the gather (torch.cat)
+# and the un-permute (index_select) by these symbols
 MACROS = (2, 4)
 MACRO_SPEC = 2
 MACRO_CLI = 4
@@ -591,7 +654,7 @@ GW_STAGED_TILE = (64, 64)
 CLI_PROFILE = ["--requests", "4", "--prompt-len", "128", "--new-tokens",
                "8", "--slots", "4", "--block-size", "16", "--kv-blocks",
                "256"]
-# the cli phase's gateway run: the booted 32-layer artifact as two tenants
+# the cli phase's gateway run: the booted artifact as two tenants
 CLI_GATEWAY = ["--dtype", "bfloat16", "--requests", "4", "--prompt-len",
                "128", "--new-tokens", "32", "--slots", "4", "--block-size",
                "16", "--kv-blocks", "256"]
@@ -1956,10 +2019,10 @@ def cli(torch, kern, card):
     its artifact in a temporary directory removed afterwards. Every run is
     driven with the launch counts at 0 and read after; ``deploy_weight`` is
     counted (the boots must pack nothing), and compress, save, boot and
-    generate are timed on the host clock, synchronized. The mamba2-780m
-    run serves its config in QAT, set by wrapping ``registry.get_config``
-    (the CLI reads its config there), as the reference sets cim_mode only
-    in code."""
+    generate are timed on the host clock, synchronized. The CLI reads its
+    config from ``registry.get_config``, which is wrapped: yi-6b is cut
+    to CLI_YI_LAYERS layers, and the mamba2-780m run serves its config in
+    QAT, as the reference sets cim_mode only in code."""
     import shutil
     import tempfile
     from repro_torch.core import deploy as D
@@ -2027,8 +2090,12 @@ def cli(torch, kern, card):
         rec["stdout"] = tee.text()
         return out
 
+    registry.get_config = lambda arch, **k: orig["get_config"][1](
+        arch, **{**({"n_layers": CLI_YI_LAYERS} if arch == "yi-6b" else {}),
+                 **k})
     try:
         cfg = registry.get_config("yi-6b", dtype="bfloat16")
+        assert cfg.n_layers == CLI_YI_LAYERS
         yi = CLI_YI + ["--artifact", art]
         batch = {}
         for runtime in ("loop", "scan"):  # pack + save, then boot
@@ -2177,8 +2244,9 @@ def cli(torch, kern, card):
         for name in ("acme", "bolt"):
             assert (f"gateway: tenant={name} tokens_match_dedicated=True"
                     in rec["stdout"]), name
-        log(f"[cli] yi-6b gateway: two tenants booted from the 32-layer "
-            f"artifact; tokens_match_dedicated=True for both; "
+        log(f"[cli] yi-6b gateway: two tenants booted from the "
+            f"{cfg.n_layers}-layer artifact; tokens_match_dedicated=True "
+            f"for both; "
             + "; ".join(f"{n} tokens_per_s {r.tokens_per_s:.2f} ttft_p50_s "
                         f"{r.to_json()['ttft']['p50']} decode_step_p50_s "
                         f"{r.to_json()['tpot']['p50']}"
@@ -3173,22 +3241,50 @@ def check_ssd_intra_bwd(torch, SI, cfg):
     return err
 
 
+def train_sites(cfg):
+    """Per forward of a QAT LM: (fake_quant launches inside the layers,
+    fake_quant launches outside them (the head), grouped_matmul and
+    ssd_intra_chunk launches inside the layers, whether the layers run
+    again in the backward under ``remat``). fake_quant runs on the
+    activations and on the weight of every projection: 7 a dense or vlm
+    layer (the vlm's mm_proj is a plain product), in_proj and out_proj a
+    mamba2 block, a moe layer's 4 attention projections plus its expert
+    inputs, hidden activations and 3 expert stacks (5 launches), the
+    hybrid's shared block at each super-layer, whisper's q, k, v, o, up
+    and down an encoder layer and self q, k, v, o, cross q, k, v, o, up
+    and down a decoder layer; the grouped product for a moe layer's router
+    and its 3 expert products; ssd_intra_chunk once a mamba2 block."""
+    fam = cfg.family
+    if fam == "encdec":
+        return (2 * (6 * cfg.enc_layers + 10 * cfg.n_layers), 2, 0, 0,
+                cfg.remat == "full")
+    again = cfg.remat in ("full", "dots")
+    if fam == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_every
+        return (2 * (2 * cfg.n_layers + 7 * n_super), 2, 0, cfg.n_layers,
+                again)
+    if fam == "ssm":
+        return 2 * 2 * cfg.n_layers, 2, 0, cfg.n_layers, again
+    if fam == "moe":
+        return ((2 * 4 + 5) * cfg.n_layers, 2, 4 * cfg.n_layers, 0, again)
+    return 2 * 7 * cfg.n_layers, 2, 0, 0, again
+
+
 def train_launches(cfg, steps) -> dict:
     """The launches of ``steps`` QAT training steps (one microbatch each):
-    fake_quant on the activations and the weight of every projection (7 a
-    dense layer, in_proj and out_proj a mamba2 layer) and of the head in
-    every forward, each layer's twice under ``remat`` (run again in the
-    backward), and fake_quant_bwd once for each in the backward;
-    ssd_intra_chunk once a mamba2 layer a forward, its backward once."""
-    proj = 7 if cfg.family == "dense" else 2
-    again = 2 if cfg.remat in ("full", "dots") else 1
-    ssm = cfg.family == "ssm"
+    every forward's fake_quant, grouped_matmul and ssd_intra_chunk
+    launches (``train_sites``), the layers' twice under ``remat`` (run
+    again in the backward); fake_quant_bwd once for each fake_quant site
+    and the SSD backward once a mamba2 block in the backward. The grouped
+    product's backward runs on ``torch.bmm``: no launch."""
+    fq, head, gm, ssd, again = train_sites(cfg)
+    n = 2 if again else 1
     return {"bsr_matmul": 0, "bsr_matmul_stacked": 0, "quant_matmul": 0,
-            "decode_attention": 0, "grouped_matmul": 0,
-            "fake_quant": 2 * (proj * cfg.n_layers * again + 1) * steps,
-            "fake_quant_bwd": 2 * (proj * cfg.n_layers + 1) * steps,
-            "ssd_intra_chunk": cfg.n_layers * again * steps * ssm,
-            "ssd_intra_chunk_bwd": cfg.n_layers * steps * ssm}
+            "decode_attention": 0, "grouped_matmul": gm * n * steps,
+            "fake_quant": (fq * n + head) * steps,
+            "fake_quant_bwd": (fq + head) * steps,
+            "ssd_intra_chunk": ssd * n * steps,
+            "ssd_intra_chunk_bwd": ssd * steps}
 
 
 def train_counts(kern) -> dict:
@@ -3209,25 +3305,44 @@ def grad_gap(torch, g, want):
     return gaps[worst], worst
 
 
-def train_grads(torch, kern, cfg, tokens):
+# the leaves a training step must reach (a gradient norm above 0): the moe
+# router and expert stacks (through the grouped product's backward), the
+# vlm's projector, the hybrid's shared block and its gates
+REACHED = ("router", "w_gate", "w_up", "w_down", "mm_proj", "shared_attn",
+           "attn_gate")
+
+
+def train_grads(torch, kern, cfg, batch):
     """One step's gradients on the kernel path against the plain path
     (wrappers swapped for their plain versions, every other op unchanged),
     on fresh weights from seed 0: with fake_quant (forward and backward)
-    swapped the gradients must be equal bit for bit, and with the SSD
-    kernels swapped too, in f32 cim_mode "dense" on the same weights (no
-    eq. 5 level to flip), within TRAIN_GRAD_TOL per leaf (relative L2):
-    the SSD kernels sum in f32 in another order. The QAT path with both
-    swapped is printed: a one-ulp difference flips an eq. 5 level, which
-    moves every gradient upstream of it."""
+    swapped the gradients must be equal bit for bit; with every kernel
+    swapped (the SSD kernels, the grouped product), in f32 cim_mode
+    "dense" on the same weights (no eq. 5 level to flip), within
+    TRAIN_GRAD_TOL per leaf (relative L2), after the moe routing (each
+    layer's top-k experts and kept choices, recorded on both paths) is
+    found equal: the kernels sum in f32 in another order. The QAT path
+    with every kernel swapped is printed: a one-ulp difference flips an
+    eq. 5 level, which moves every gradient upstream of it. Families with
+    no kernel in dense mode (dense, vlm, encdec) skip that comparison.
+    Every leaf of REACHED the model has takes a gradient norm above 0."""
+    from repro_torch.models import layers as ML
     from repro_torch.models import registry
     from repro_torch.train import trainer as TR
+    from repro_torch.train.checkpoint import flatten
     from repro_torch.train.optimizer import leaves
-    _, FQ, SI, *_ = kern
+    _, FQ, *_ = kern
     params = registry.model_fns(cfg).init_params(
         cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
     params = TR.train_state(TR.TrainConfig(), params,
                             opt_state={})["params"]
-    batch = {"tokens": tokens}
+    routes = []
+    route = ML.moe_route
+
+    def recording(*args):
+        rt = route(*args)
+        routes.append((rt.idx.clone(), rt.keep.clone()))
+        return rt
 
     def grads(c):
         (_, ce), g = TR.value_and_grad(TR.make_loss_fn(c), params, batch)
@@ -3235,60 +3350,67 @@ def train_grads(torch, kern, cfg, tokens):
 
     out = {}
     ce, g = grads(cfg)
-    saved = FQ.fake_quant, SI.ssd_intra_chunk
+    zero = [k for k, t in flatten(g)
+            if set(k.split("/")) & set(REACHED) and not float(t.norm()) > 0]
+    assert not zero, (cfg.name, "no gradient", zero)
+    out["reached"] = sorted({p for k, _ in flatten(g)
+                             for p in k.split("/") if p in REACHED})
+    saved = FQ.fake_quant
     try:
         FQ.fake_quant = FQ.fake_quant_plain
         ce_fq, g_fq = grads(cfg)
-        same = all(torch.equal(a, b) for a, b in zip(
-            leaves(g), leaves(g_fq)))
-        assert same and ce == ce_fq, (cfg.name, "fake_quant swapped")
-        out["fake_quant_swapped"] = "bit for bit"
-        del g_fq
-        if cfg.family == "ssm":
-            SI.ssd_intra_chunk = SI.ssd_intra_chunk_plain
-            _, g_plain = grads(cfg)
-            out["qat_all_swapped_max_rel_l2"] = grad_gap(torch, g, g_plain)
-            del g_plain
-            dense = dataclasses.replace(cfg, cim_mode="dense")
-            SI.ssd_intra_chunk = saved[1]
-            FQ.fake_quant = saved[0]
-            _, g_k = grads(dense)
-            FQ.fake_quant = FQ.fake_quant_plain
-            SI.ssd_intra_chunk = SI.ssd_intra_chunk_plain
-            _, g_p = grads(dense)
-            gap, leaf = grad_gap(torch, g_k, g_p)
-            assert gap <= TRAIN_GRAD_TOL, (cfg.name, leaf, gap)
-            out["dense_all_swapped_max_rel_l2"] = [gap, leaf]
-            del g_k, g_p
     finally:
-        FQ.fake_quant, SI.ssd_intra_chunk = saved
+        FQ.fake_quant = saved
+    same = all(torch.equal(a, b) for a, b in zip(leaves(g), leaves(g_fq)))
+    assert same and ce == ce_fq, (cfg.name, "fake_quant swapped")
+    out["fake_quant_swapped"] = "bit for bit"
+    del g_fq
+    if cfg.family in ("ssm", "hybrid", "moe"):
+        with plain_kernels(kern, grouped=True):
+            _, g_plain = grads(cfg)
+        out["qat_all_swapped_max_rel_l2"] = grad_gap(torch, g, g_plain)
+        del g_plain
+        dense = dataclasses.replace(cfg, cim_mode="dense")
+        ML.moe_route = recording
+        try:
+            _, g_k = grads(dense)
+            kernel_routes = list(routes)
+            routes.clear()
+            with plain_kernels(kern, grouped=True):
+                _, g_p = grads(dense)
+        finally:
+            ML.moe_route = route
+        assert len(kernel_routes) == len(routes) and all(
+            torch.equal(a, b) for x, y in zip(kernel_routes, routes)
+            for a, b in zip(x, y)), (cfg.name, "routing")
+        gap, leaf = grad_gap(torch, g_k, g_p)
+        assert gap <= TRAIN_GRAD_TOL, (cfg.name, leaf, gap)
+        out["dense_all_swapped_max_rel_l2"] = [gap, leaf]
+        if routes:
+            out["dense_routing_equal"] = f"{len(routes)} routings"
+        del g_k, g_p
     del g, params
     return out
 
 
-def train(torch, kern, card):
-    """Phase "train": ``repro_torch.launch.train.main(argv)`` in-process,
-    QAT (--cim) with the group lasso, AdamW, f32, on TokenPipeline, for
-    yi-6b at full width with depth cut to TRAIN_YI_LAYERS and mamba2-780m
-    at full width and depth (each config's depth cut by wrapping
-    ``registry.get_config``, which the CLI reads), under
-    ``torch.use_deterministic_algorithms(True)``. Each model:
+def train_cli(torch, kern, arch, argv, stop, layers, tag):
+    """One model through ``repro_torch.launch.train.main(argv)``
+    in-process, its depth cut to ``layers`` (if given) by wrapping
+    ``registry.get_config``, which the CLI reads:
 
     a. one step's gradients against the plain path (``train_grads``);
     b. a straight run: the loss finite and falling (the mean of the last
        5 steps under the first step's), launch counts exact
-       (``train_launches``: every projection's forward and backward
-       through fake_quant and fake_quant_bwd, every mamba2 layer's
-       through both SSD kernels), step ms and tokens/s;
-    c. the same run stopped by SIGTERM after its step ``stop`` (it
-       checkpoints and exits 0), then ``--resume``: the same losses from
-       there and the same parameters and moments as the straight run, bit
-       for bit;
+       (``train_launches``), step ms, tokens/s and peak memory;
+    c. unless ``stop`` is None, the same run stopped by SIGTERM after its
+       step ``stop`` (it checkpoints and exits 0), then ``--resume``: the
+       same losses from there and the same parameters and moments as the
+       straight run, bit for bit;
     d. one more step profiled (torch.profiler): the busy share and the top
        kernels.
 
     Checkpoints go to a temporary directory, removed afterwards. Returns
-    the launch counts of the straight runs."""
+    the launch counts of the straight run."""
     import shutil
     import signal
     import tempfile
@@ -3296,124 +3418,265 @@ def train(torch, kern, card):
     from repro_torch.data import TokenPipeline
     from repro_torch.models import registry
     from repro_torch.train.optimizer import leaves
-    counts = {}
     get_config = registry.get_config
     make_step = CLI.make_train_step
+    registry.get_config = (
+        (lambda a, **k: get_config(a, **dict(k, n_layers=layers)))
+        if layers else get_config)
+    tmp = tempfile.mkdtemp(prefix=f"train-{arch}-")
+    t_run = time.perf_counter()
+    try:
+        opt = argv[argv.index("--opt") + 1]
+        cfg = registry.get_config(
+            arch, dtype="float32", cim_mode="qat", w_bits=8, a_bits=8,
+            lambda_g=float(argv[argv.index("--lambda-g") + 1]),
+            cim_alpha=16, cim_n=16)
+        steps = int(argv[argv.index("--steps") + 1])
+        batch = int(argv[argv.index("--batch") + 1])
+        seq = int(argv[argv.index("--seq") + 1])
+        rec = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+               "seq": seq, "steps": steps, "opt": opt,
+               "argv": " ".join(argv)}
+        toks = torch.as_tensor(TokenPipeline(
+            cfg.vocab, batch, seq, seed=0).next_batch()["tokens"],
+            device=DEV)
+        t0 = time.perf_counter()
+        rec["grads"] = train_grads(torch, kern, cfg, {"tokens": toks})
+        rec["grads_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launches(kern)
+        log(f"[{tag}] {arch}: main({' '.join(argv)})")
+        t0 = time.perf_counter()
+        straight = CLI.main(argv + ["--ckpt-dir", f"{tmp}/a"])
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        got = train_counts(kern)
+        want = train_launches(cfg, steps)
+        assert got == want, (arch, got, want)
+        losses = straight.losses
+        assert all(math.isfinite(v) for v in losses), losses
+        assert statistics.mean(losses[-5:]) < losses[0], losses
+        n_params = sum(p.numel() for p in leaves(straight.state["params"]))
+        steady = statistics.median(straight.step_s[1:])
+        rec.update(params=n_params, losses=losses,
+                   first_step_s=straight.step_s[0],
+                   step_ms_median=steady * 1e3,
+                   tokens_per_s=batch * seq / steady,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches=got)
+        shutil.rmtree(f"{tmp}/a")
+        final_state = straight.state
+        if stop is not None:
+            final = [t.detach().clone() for t in
+                     leaves(straight.state["params"])
+                     + leaves(straight.state["opt"])]
+            del straight, final_state
+            torch.cuda.empty_cache()
+
+            def stopping(c, t):
+                step = make_step(c, t)
+
+                def run(state, b):
+                    out = step(state, b)
+                    if state["step"] == stop:
+                        signal.raise_signal(signal.SIGTERM)
+                    return out
+                return run
+
+            CLI.make_train_step = stopping
+            t0 = time.perf_counter()
+            try:
+                CLI.main(argv + ["--ckpt-dir", f"{tmp}/b"])
+                raise AssertionError(f"{arch}: SIGTERM did not stop it")
+            except SystemExit as e:
+                assert e.code == 0, e.code
+            finally:
+                CLI.make_train_step = make_step
+            rec["stopped_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed = CLI.main(argv + ["--ckpt-dir", f"{tmp}/b",
+                                       "--resume"])
+            rec["resumed_s"] = time.perf_counter() - t0
+            rec["resumed_steps_s"] = sum(resumed.step_s)
+            assert resumed.start_step == stop
+            assert resumed.losses == losses[stop:], (resumed.losses, losses)
+            after = (leaves(resumed.state["params"])
+                     + leaves(resumed.state["opt"]))
+            assert all(torch.equal(a, b) for a, b in zip(final, after))
+            rec["resume"] = (f"SIGTERM after step {stop}, --resume to "
+                             f"{steps}: parameters and moments bit for "
+                             "bit equal to the straight run's")
+            del final, after
+            final_state = resumed.state
+        else:
+            del straight
+        log(json.dumps({tag: rec}))
+        profile_train(torch, cfg, final_state, {"tokens": toks}, opt)
+        log(f"[{tag}] {arch}: {time.perf_counter() - t_run:.1f} s")
+        return got
+    finally:
+        registry.get_config = get_config
+        CLI.make_train_step = make_step
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def train(torch, kern, card):
+    """Phase "train": ``train_cli`` under
+    ``torch.use_deterministic_algorithms(True)``, QAT (--cim) with the
+    group lasso, AdamW, f32, on TokenPipeline, for yi-6b at full width
+    with depth cut to TRAIN_YI_LAYERS and mamba2-780m at full width and
+    depth. Returns the launch counts of the straight runs."""
+    counts = {}
     t_phase = time.perf_counter()
     torch.use_deterministic_algorithms(True)
     try:
         for arch, argv, stop, layers in (
                 ("yi-6b", TRAIN_YI, TRAIN_YI_STOP, TRAIN_YI_LAYERS),
                 ("mamba2-780m", TRAIN_MAMBA, TRAIN_MAMBA_STOP, None)):
-            registry.get_config = (
-                (lambda a, **k: get_config(a, **dict(k, n_layers=layers)))
-                if layers else get_config)
-            cfg = registry.get_config(
-                arch, dtype="float32", cim_mode="qat", w_bits=8, a_bits=8,
-                lambda_g=float(argv[argv.index("--lambda-g") + 1]),
-                cim_alpha=16, cim_n=16)
-            steps = int(argv[argv.index("--steps") + 1])
-            batch = int(argv[argv.index("--batch") + 1])
-            seq = int(argv[argv.index("--seq") + 1])
-            tmp = tempfile.mkdtemp(prefix=f"train-{arch}-")
-            rec = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
-                   "seq": seq, "steps": steps, "argv": " ".join(argv)}
-            try:
-                toks = torch.as_tensor(TokenPipeline(
-                    cfg.vocab, batch, seq, seed=0).next_batch()["tokens"],
-                    device=DEV)
-                t0 = time.perf_counter()
-                rec["grads"] = train_grads(torch, kern, cfg, toks)
-                rec["grads_s"] = time.perf_counter() - t0
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
-                torch.cuda.synchronize()
-                reset_launches(kern)
-                log(f"[train] {arch}: main({' '.join(argv)})")
-                t0 = time.perf_counter()
-                straight = CLI.main(argv + ["--ckpt-dir", f"{tmp}/a"])
-                torch.cuda.synchronize()
-                rec["wall_s"] = time.perf_counter() - t0
-                counts[f"train {arch}"] = got = train_counts(kern)
-                want = train_launches(cfg, steps)
-                assert got == want, (arch, got, want)
-                losses = straight.losses
-                assert all(math.isfinite(v) for v in losses), losses
-                assert statistics.mean(losses[-5:]) < losses[0], losses
-                n_params = sum(p.numel() for p in leaves(
-                    straight.state["params"]))
-                steady = statistics.median(straight.step_s[1:])
-                rec.update(params=n_params, losses=losses,
-                           first_step_s=straight.step_s[0],
-                           step_ms_median=steady * 1e3,
-                           tokens_per_s=batch * seq / steady,
-                           peak_mem_gb=torch.cuda.max_memory_allocated()
-                           / 2 ** 30, launches=got)
-                final = [t.detach().clone() for t in
-                         leaves(straight.state["params"])
-                         + leaves(straight.state["opt"])]
-                del straight
-                shutil.rmtree(f"{tmp}/a")
-                torch.cuda.empty_cache()
-
-                def stopping(c, t):
-                    step = make_step(c, t)
-
-                    def run(state, b):
-                        out = step(state, b)
-                        if state["step"] == stop:
-                            signal.raise_signal(signal.SIGTERM)
-                        return out
-                    return run
-
-                CLI.make_train_step = stopping
-                try:
-                    CLI.main(argv + ["--ckpt-dir", f"{tmp}/b"])
-                    raise AssertionError(f"{arch}: SIGTERM did not stop it")
-                except SystemExit as e:
-                    assert e.code == 0, e.code
-                finally:
-                    CLI.make_train_step = make_step
-                resumed = CLI.main(argv + ["--ckpt-dir", f"{tmp}/b",
-                                           "--resume"])
-                assert resumed.start_step == stop
-                assert resumed.losses == losses[stop:], (resumed.losses,
-                                                         losses)
-                after = (leaves(resumed.state["params"])
-                         + leaves(resumed.state["opt"]))
-                assert all(torch.equal(a, b) for a, b in zip(final, after))
-                rec["resume"] = (f"SIGTERM after step {stop}, --resume to "
-                                 f"{steps}: parameters and moments bit for "
-                                 "bit equal to the straight run's")
-                del final, after
-                log(json.dumps({"train": rec}))
-                profile_train(torch, cfg, resumed.state, toks)
-                del resumed
-            finally:
-                registry.get_config = get_config
-                shutil.rmtree(tmp, ignore_errors=True)
-                torch.cuda.empty_cache()
+            counts[f"train {arch}"] = train_cli(torch, kern, arch, argv,
+                                                stop, layers, "train")
     finally:
         torch.use_deterministic_algorithms(False)
-    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s ({card})")
     return counts
 
 
-def profile_train(torch, cfg, state, tokens):
-    """Phase 7 for training: one more optimizer step of ``state`` (warmed
-    up by the runs before it) under torch.profiler."""
+def train_steps(torch, kern, arch, batch, seq, steps, layers, tag):
+    """One model of phase 16 through ``trainer.make_train_step`` (the
+    CLI refuses a family whose loss reads more than tokens): QAT w8a8,
+    lasso 1e-5, AdamW at the CLI's settings, f32, seed 0, ``steps`` steps
+    of ``batch`` x ``seq`` TokenPipeline tokens beside the stub input,
+    drawn once from a seeded generator at 0.02 a unit (phase 15's stubs):
+    whisper's frames (batch, enc_seq, d_model) or llava's patch embeddings
+    (batch, n_patches, d_model); depth cut to ``layers`` if given; (a),
+    (b) and (d) of ``train_cli``. Returns the launch counts."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import registry
     from repro_torch.train import optimizer as OPT
     from repro_torch.train import trainer as TR
-    tcfg = TR.TrainConfig(opt=OPT.OptConfig(lr=3e-3, warmup_steps=10,
+    from repro_torch.train.optimizer import leaves
+    t_run = time.perf_counter()
+    over = dict(dtype="float32", cim_mode="qat", w_bits=8, a_bits=8,
+                lambda_g=1e-5, cim_alpha=16, cim_n=16)
+    if layers:
+        over["n_layers"] = layers
+    cfg = registry.get_config(arch, **over)
+    pipe = TokenPipeline(cfg.vocab, batch, seq, seed=0)
+    n, key = ((cfg.enc_seq, "frames") if cfg.family == "encdec"
+              else (cfg.n_patches, "patch_embeds"))
+    stub = torch.randn((batch, n, cfg.d_model), device=DEV,
+                       generator=torch.Generator(device=DEV).manual_seed(2)
+                       ) * 0.02
+
+    def next_batch():
+        return {"tokens": torch.as_tensor(pipe.next_batch()["tokens"],
+                                          device=DEV), key: stub}
+
+    first = next_batch()
+    rec = {"arch": arch, "layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "steps": steps, "opt": "adamw",
+           "stub": {k: list(v.shape) for k, v in first.items()}}
+    t0 = time.perf_counter()
+    rec["grads"] = train_grads(torch, kern, cfg, first)
+    rec["grads_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TR.TrainConfig(opt=OPT.OptConfig(kind="adamw", lr=3e-3,
+                                            warmup_steps=10,
+                                            total_steps=steps))
+    state = TR.init_train_state(cfg, tcfg,
+                                torch.Generator(device=DEV).manual_seed(0),
+                                DEV)
+    step = TR.make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    reset_launches(kern)
+    log(f"[{tag}] {arch}: {steps} steps of make_train_step")
+    losses, step_s = [], []
+    b = first
+    t0 = last = time.perf_counter()
+    for i in range(steps):
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))  # ends the step
+        now = time.perf_counter()
+        step_s.append(now - last)
+        last = now
+        if i + 1 < steps:
+            b = next_batch()
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    got = train_counts(kern)
+    want = train_launches(cfg, steps)
+    assert got == want, (arch, got, want)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert statistics.mean(losses[-5:]) < losses[0], losses
+    steady = statistics.median(step_s[1:])
+    rec.update(params=sum(p.numel() for p in leaves(state["params"])),
+               losses=losses, first_step_s=step_s[0],
+               step_ms_median=steady * 1e3, tokens_per_s=batch * seq / steady,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=got)
+    log(json.dumps({tag: rec}))
+    profile_train(torch, cfg, state, first, "adamw")
+    log(f"[{tag}] {arch}: {time.perf_counter() - t_run:.1f} s")
+    del state
+    torch.cuda.empty_cache()
+    return got
+
+
+def train_families(torch, kern, card):
+    """Phase 16 (train-families): QAT training (w8a8, lasso 1e-5, f32, seed
+    0) of the moe, hybrid, encdec and vlm families at full width, under
+    ``torch.use_deterministic_algorithms(True)``, each run with the launch
+    counts at 0 and read after: phi3.5-moe cut to TRAIN_PHI_LAYERS through
+    the CLI with SGDM, SIGTERM after TRAIN_PHI_STOP and --resume;
+    zamba2-1.2b cut to TRAIN_ZAMBA_LAYERS through the CLI; whisper-tiny
+    and llava-next-34b (cut to TRAIN_LLAVA_LAYERS) through
+    ``make_train_step`` with stub inputs. At most TRAIN_FAMILIES_BUDGET_S
+    seconds. Returns the launch counts."""
+    t_phase = time.perf_counter()
+    tag = "train-families"
+    counts = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        counts["train-families phi3.5-moe"] = train_cli(
+            torch, kern, "phi3.5-moe-42b-a6.6b", TRAIN_PHI, TRAIN_PHI_STOP,
+            TRAIN_PHI_LAYERS, tag)
+        counts["train-families zamba2"] = train_cli(
+            torch, kern, "zamba2-1.2b", TRAIN_ZAMBA, None,
+            TRAIN_ZAMBA_LAYERS, tag)
+        counts["train-families whisper"] = train_steps(
+            torch, kern, "whisper-tiny", *TRAIN_WHISPER, None, tag)
+        counts["train-families llava"] = train_steps(
+            torch, kern, "llava-next-34b", *TRAIN_LLAVA, TRAIN_LLAVA_LAYERS,
+            tag)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    secs = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {secs:.1f} s ({card})")
+    assert secs <= TRAIN_FAMILIES_BUDGET_S, secs
+    return counts
+
+
+def profile_train(torch, cfg, state, batch, opt):
+    """Phase 7 for training: one more optimizer step of ``state`` (warmed
+    up by the runs before it; its moments are ``opt``'s) under
+    torch.profiler."""
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import trainer as TR
+    tcfg = TR.TrainConfig(opt=OPT.OptConfig(kind=opt, lr=3e-3,
+                                            warmup_steps=10,
                                             total_steps=100))
     step = TR.make_train_step(cfg, tcfg)
     profile_run(torch, f"{cfg.name} train step ({cfg.n_layers} layers)",
-                lambda: {"loss": float(step(state, {"tokens": tokens})[1][
-                    "loss"])},
+                lambda: {"loss": float(step(state, batch)[1]["loss"])},
                 {"fake_quant_fwd": "fake_quant_kernel",
                  "fake_quant_bwd": "fake_quant_bwd_kernel",
                  "ssd_intra_fwd": "ssd_intra",
                  "ssd_intra_bwd": "ssd_bwd_",
+                 "grouped_matmul": "grouped_matmul",
                  "gemm": "gemm"})
 
 
@@ -3836,7 +4099,8 @@ def cnn(torch, kern, card):
 def check_grouped_matmul(torch, GM):
     """Phase 2: the grouped-product kernel against its plain version at
     phase 12's shapes (GM_SHAPES: the moe configs' router and expert
-    products at decode, verify and prefill rows, gemma3's tied head), f32
+    products at decode, verify and prefill rows, gemma3's tied head) and
+    phase 16's (GM_TRAIN_SHAPES: phi3.5-moe's f32 training products), f32
     within GM_F32_TOL of max |plain| and bf16 within GM_BF16_TOL, with and
     without per-group row counts (rows past a count zero); every call
     repeated bit for bit; the built library's launch plan equal to
@@ -3849,7 +4113,7 @@ def check_grouped_matmul(torch, GM):
     gen = torch.Generator(device=DEV).manual_seed(31)
     GM.reset_launches()
     n, worst = 0, 0.0
-    for label, g, r, k, nn, xt, wt in GM_SHAPES:
+    for label, g, r, k, nn, xt, wt in GM_SHAPES + GM_TRAIN_SHAPES:
         xt, wt = getattr(torch, xt), getattr(torch, wt)
         assert GM.describe(xt, wt, k, nn) == GM.plan(xt, wt, k, nn).fields(), \
             (label, GM.describe(xt, wt, k, nn), GM.plan(xt, wt, k, nn))
@@ -3898,8 +4162,9 @@ def check_grouped_matmul(torch, GM):
         del x, w, full
     torch.cuda.synchronize()
     assert GM.LAUNCHES == n, (GM.LAUNCHES, n)
-    log(f"[kernel] grouped_matmul: {len(GM_SHAPES)} shapes "
-        f"({[s[0] for s in GM_SHAPES]}) within tolerance (f32 "
+    log(f"[kernel] grouped_matmul: {len(GM_SHAPES + GM_TRAIN_SHAPES)} "
+        f"shapes ({[s[0] for s in GM_SHAPES + GM_TRAIN_SHAPES]}) within "
+        f"tolerance (f32 "
         f"{GM_F32_TOL}, bf16 {GM_BF16_TOL} of max |plain|), with and "
         f"without row counts, each call repeated bit for bit, launch plans "
         f"as plan() mirrors them; at every shape each row bit for bit "
@@ -4840,10 +5105,12 @@ def times_macro(torch, K, Q, sp, sxp, sharded):
 
 
 def times_grouped_matmul(torch, GM):
-    """Phase 8: the grouped product at phase 12's serving shapes (GM_SHAPES)
-    and at phi3.5-moe's decode with routed counts (GM_ROUTED: N_SLOTS
-    tokens, top-2 of the 16 experts, so at most 8 experts filled): kernel,
-    per-launch device, bound, plain and library times.
+    """Phase 8: the grouped product at phase 12's serving shapes (GM_SHAPES),
+    at phi3.5-moe's decode with routed counts (GM_ROUTED: N_SLOTS tokens,
+    top-2 of the 16 experts, so at most 8 experts filled) and at phase
+    16's training shapes (GM_TRAIN_SHAPES): kernel, per-launch device,
+    bound (and the byte bound alone), plain and library times. The
+    training backward's products run on ``torch.bmm``, not the kernel.
 
     Bound: the bytes the call must move (x's filled rows and the filled
     groups' weights read once, y written once) over the HBM rate, or its
@@ -4869,6 +5136,16 @@ def times_grouped_matmul(torch, GM):
                                   for _ in range(N_SLOTS)])
             cases.append((shape, torch.bincount(chosen.flatten(),
                                                 minlength=g).int()))
+    for shape in GM_TRAIN_SHAPES:
+        g = shape[1]
+        counts = None
+        if g > 1:  # each group's kept choices an expert, capped, summed
+            counts = sum(torch.bincount(torch.stack([
+                torch.randperm(g, generator=pick)[:2]
+                for _ in range(GM_TRAIN_GROUP)]).flatten(),
+                minlength=g).clamp(max=GM_TRAIN_CAP)
+                for _ in range(GM_TRAIN_GROUPS)).int()
+        cases.append((shape, counts))
     rows = []
     for (label, g, r, k, nn, x_name, w_name), counts in cases:
         xt, wt = getattr(torch, x_name), getattr(torch, w_name)
@@ -4901,6 +5178,7 @@ def times_grouped_matmul(torch, GM):
                "device_ms": device_split(torch, run, flush, (
                    "grouped_matmul",))["grouped_matmul"],
                "bound_ms": b_ms, "bound_by": b_by,
+               "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "bound_ms_f32_cuda_cores": f32_ms,
                "bound_by_f32_cuda_cores": f32_by,
                "plain_ms": time_ms(torch, lambda: GM.grouped_matmul_plain(
@@ -5411,7 +5689,7 @@ def main() -> int:
 
 
 def run_all(torch, search) -> int:
-    """Phases 1-15 (see the module docstring); ``search`` is the
+    """Phases 1-16 (see the module docstring); ``search`` is the
     schedule search's process, read by phase 9."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import quant as Q
@@ -5428,6 +5706,7 @@ def run_all(torch, search) -> int:
     from repro_torch.serve import deployed as DP
     from repro_torch.serve import stacked as ST
 
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 references
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -5515,6 +5794,7 @@ def run_all(torch, search) -> int:
     counts.update(macro_counts)
     counts.update(gateway(torch, kern, cfg, sp, card))
     counts.update(families(torch, kern, card))
+    counts.update(train_families(torch, kern, card))
     max_err.update(macro_err)
     max_err["bsr_matmul"] = max(max_err["bsr_matmul"], deploy_err)
 
@@ -5597,6 +5877,7 @@ def run_all(torch, search) -> int:
                 worst_kernel_over_library=worst["kernel_ms"]
                 / worst["library_ms"])
     log(json.dumps({"kernels": kernels}))
+    log(f"[run] phases 1-16 in {time.perf_counter() - t_run:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,21 @@ group's number of filled rows: rows at or past it come out as zeros.
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (one launch a call) or raises.
 ``LAUNCHES`` counts the launches.
+
+Gradients. When grad mode is on and x or w requires a gradient, both
+``grouped_matmul`` and ``grouped_matmul_plain`` run through an autograd
+Function whose forward is the call above (the kernel's launch is
+unchanged) and whose backward computes, in the product's type,
+
+    dx[g] = dy[g] @ w[g]^T      dw[g] = x[g]^T @ dy[g]
+
+with dy's rows at or past ``counts[g]`` taken as zeros (those outputs are
+constant), so those rows of dx are zero and add nothing to dw; dw comes
+back in w's type. The reference leaves these products to XLA's autodiff
+of its plain einsums (``repro/models/layers.py:352,395-398``); here they
+are two ``torch.bmm`` over strided views on both devices. The moe
+training's backward needs no row invariance: its rows are each step's
+own. Otherwise the wrapper saves nothing and runs the forward alone.
 """
 from __future__ import annotations
 
@@ -192,6 +207,50 @@ def _check(x: torch.Tensor, w: torch.Tensor,
     return w if keep else w.to(x.dtype)
 
 
+def _filled(r: int, counts: torch.Tensor) -> torch.Tensor:
+    """(G, r, 1) bool: the rows below each group's count."""
+    return (torch.arange(r, device=counts.device)[None, :]
+            < counts[:, None])[..., None]
+
+
+def _plain_product(x: torch.Tensor, w: torch.Tensor,
+                   counts: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain version's arithmetic on a checked w (see
+    :func:`grouped_matmul_plain`)."""
+    r = x.shape[1]
+    y = torch.bmm(x.expand(-1, 2, -1) if r == 1 else x,
+                  w.to(x.dtype))[:, :r]
+    if counts is not None:
+        y = torch.where(_filled(r, counts), y, 0.0)
+    return y.contiguous()
+
+
+def _needs_grad(x: torch.Tensor, w: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The forward on the kernel (or the plain version); the backward's two
+    products by ``torch.bmm`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, counts, plain):
+        ctx.save_for_backward(x, w, counts)
+        return (_plain_product if plain else _launch)(x, w, counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, counts = ctx.saved_tensors
+        if counts is not None:
+            dy = torch.where(_filled(dy.shape[1], counts), dy, 0.0)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(dy, w.to(x.dtype).transpose(1, 2))
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(x.transpose(1, 2), dy).to(w.dtype)
+        return dx, dw, None, None
+
+
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                          counts: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
@@ -199,14 +258,12 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     past ``counts`` zeroed. A one-row product is taken as two rows (the
     row repeated): the CPU library sends a single row to its
     matrix-vector routine, whose sum order differs from the matrix
-    product's, and would break the rows' independence of R here."""
-    w = _check(x, w, counts).to(x.dtype)
-    r = x.shape[1]
-    y = torch.bmm(x.expand(-1, 2, -1) if r == 1 else x, w)[:, :r]
-    if counts is not None:
-        filled = torch.arange(r, device=x.device)[None, :] < counts[:, None]
-        y = torch.where(filled[..., None], y, 0.0)
-    return y.contiguous()
+    product's, and would break the rows' independence of R here.
+    Differentiable through the wrapper's Function (module docstring)."""
+    w = _check(x, w, counts)
+    if _needs_grad(x, w):
+        return _GroupedMatmul.apply(x, w, counts, True)
+    return _plain_product(x, w, counts)
 
 
 def _strides(t: torch.Tensor, inner_pad: int) -> Tuple[int, int]:
@@ -241,15 +298,24 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     """y[g] = x[g] @ w[g] in x's type (module docstring) on the kernel for
     CUDA tensors, the plain version for CPU ones. ``x`` and ``w`` may be
     views whose rows are contiguous (strides of their own); other layouts
-    are copied, as are operands the tensor maps cannot take."""
+    are copied, as are operands the tensor maps cannot take.
+    Differentiable (module docstring): the backward never launches."""
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, counts)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     w = _check(x, w, counts)
-    pl = plan(x.dtype, w.dtype, int(x.shape[2]), int(w.shape[2]))
     if any(t is not None and t.device != x.device for t in (w, counts)):
         raise ValueError("all operands must lie on one CUDA device")
+    if _needs_grad(x, w):
+        return _GroupedMatmul.apply(x, w, counts, False)
+    return _launch(x, w, counts)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            counts: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the kernel on a checked w (see :func:`grouped_matmul`)."""
+    pl = plan(x.dtype, w.dtype, int(x.shape[2]), int(w.shape[2]))
     g, r, k = x.shape
     n = w.shape[2]
     if x.stride(2) != 1:

@@ -8,12 +8,17 @@ SIGTERM-safe.
 
 The reference's flags (``repro/launch/train.py``), one for one, plus
 ``--device`` (default cuda: without a GPU it raises unless ``--device
-cpu`` is given). The reference's mesh and shardings are not ported: one
-device. ``--ckpt-dir`` defaults to a directory under the system's
-temporary directory. The log lines are the reference's. ``main`` also
-returns a :class:`TrainRun` (the final state and each step's loss and
-host seconds; the loss is read every step, which ends each step on the
-device).
+cpu`` is given). Every family whose batch is tokens alone trains here:
+dense, moe, ssm and hybrid. The encdec and vlm families' losses also read
+stub frames / patch embeddings, which ``TokenPipeline`` does not make
+(the reference's CLI fails at its first step); the CLI refuses them
+before it builds a state, and they train through
+``trainer.make_train_step`` with those inputs. The reference's mesh and
+shardings are not ported: one device. ``--ckpt-dir`` defaults to a
+directory under the system's temporary directory. The log lines are the
+reference's. ``main`` also returns a :class:`TrainRun` (the final state
+and each step's loss and host seconds; the loss is read every step, which
+ends each step on the device).
 """
 from __future__ import annotations
 
@@ -34,6 +39,10 @@ from ..models import registry
 from ..train import checkpoint as ckpt
 from ..train import optimizer as optim
 from ..train.trainer import TrainConfig, init_train_state, make_train_step
+
+
+# the families whose train_loss reads an input besides the tokens
+BATCH_INPUTS = {"encdec": "frames", "vlm": "patch_embeds"}
 
 
 @dataclasses.dataclass
@@ -81,6 +90,12 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                     lambda_g=args.lambda_g, cim_alpha=16, cim_n=16)
     cfg = (registry.get_smoke_config(args.arch, **over) if args.smoke
            else registry.get_config(args.arch, **over))
+    if cfg.family in BATCH_INPUTS:
+        raise ValueError(
+            f"--arch {args.arch}: the {cfg.family} family's loss reads "
+            f"batch[{BATCH_INPUTS[cfg.family]!r}], which this CLI's "
+            "TokenPipeline (tokens alone) does not make; train it through "
+            "repro_torch.train.trainer.make_train_step with that input")
     tcfg = TrainConfig(
         opt=optim.OptConfig(kind=args.opt, lr=args.lr, warmup_steps=10,
                             total_steps=args.steps),

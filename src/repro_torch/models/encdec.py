@@ -95,14 +95,25 @@ def _head(params: dict) -> torch.Tensor:
     return params["embed"].T
 
 
+def _remat(fn, params: dict, cfg: ModelConfig):
+    """A layer under ``cfg.remat == "full"`` (the reference's
+    ``jax.checkpoint``) while autograd records the parameters: the
+    encoder's input, the stub frames, needs no gradient."""
+    return L.maybe_remat(fn, cfg.remat == "full", params["embed"])
+
+
+def _enc_layer(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = x + L.bidir_attention(p["attn"], _ln(x, p["ln1"]), cfg)
+    return x + L.gelu_mlp(p["mlp"], _ln(x, p["ln2"]), cfg.cim)
+
+
 def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig
            ) -> torch.Tensor:
     """frames (B, T, D), the stub's embeddings -> encoder hidden (B, T, D)."""
     x = frames.to(cfg.param_dtype)
+    layer = _remat(_enc_layer, params, cfg)
     for i in range(cfg.enc_layers):
-        p = _layer(params["enc_layers"], i)
-        x = x + L.bidir_attention(p["attn"], _ln(x, p["ln1"]), cfg)
-        x = x + L.gelu_mlp(p["mlp"], _ln(x, p["ln2"]), cfg.cim)
+        x = layer(_layer(params["enc_layers"], i), x, cfg)
     return _ln(x, params["enc_ln"])
 
 
@@ -129,18 +140,25 @@ def _decoder(params: dict, tokens: torch.Tensor, enc: torch.Tensor,
     """The teacher-forced decoder over the whole sequence. Returns (hidden
     (B, S, D), per layer (k, v, xk, xv))."""
     x = _dec_embed(params, tokens, 0, cfg)
+    layer = _remat(_dec_layer, params, cfg)
     kvs = []
     for i in range(cfg.n_layers):
-        p = _layer(params["dec_layers"], i)
-        attn, (k, v) = L.self_attention(p["self"], _ln(x, p["ln1"]), cfg,
-                                        use_rope=False)
-        x = x + attn
-        kx, vx = _cross_kv(p, enc, cfg)
-        x = x + L.cross_attention(p["cross"], _ln(x, p["lnx"]), (kx, vx),
-                                  cfg)
-        x = x + L.gelu_mlp(p["mlp"], _ln(x, p["ln2"]), cfg.cim)
-        kvs.append((k, v, kx, vx))
+        x, kv = layer(_layer(params["dec_layers"], i), x, enc, cfg)
+        kvs.append(kv)
     return _ln(x, params["dec_ln"]), kvs
+
+
+def _dec_layer(p: dict, x: torch.Tensor, enc: torch.Tensor,
+               cfg: ModelConfig):
+    """One decoder layer over the whole sequence. Returns (x, (k, v, xk,
+    xv))."""
+    attn, (k, v) = L.self_attention(p["self"], _ln(x, p["ln1"]), cfg,
+                                    use_rope=False)
+    x = x + attn
+    kx, vx = _cross_kv(p, enc, cfg)
+    x = x + L.cross_attention(p["cross"], _ln(x, p["lnx"]), (kx, vx), cfg)
+    x = x + L.gelu_mlp(p["mlp"], _ln(x, p["ln2"]), cfg.cim)
+    return x, (k, v, kx, vx)
 
 
 def decode_full(params: dict, tokens: torch.Tensor, enc: torch.Tensor,

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..core import deploy
 from ..core import quant as Q
@@ -469,6 +470,17 @@ def logits_rows(head, x: torch.Tensor, cim: CIMConfig) -> torch.Tensor:
     lead = x.shape[:-1]
     y = ops.grouped_matmul(x.reshape(1, -1, x.shape[-1]), head[None])
     return y.reshape(*lead, head.shape[-1])
+
+
+def maybe_remat(fn, remat: bool, x: torch.Tensor):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``remat`` and autograd records ``x``: a layer keeps only its inputs
+    and is run again in the backward, with the same numerics. Serving is
+    left as it is."""
+    if remat and torch.is_grad_enabled() and x.requires_grad:
+        return lambda *args: torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,8 +1,8 @@
 """Decoder-only LM, dense, moe, vlm, ssm (mamba2) and hybrid (zamba2)
 families: parameters, the full-sequence forward, and the static-batch
 serving entry points (``prefill``, ``init_cache``, ``pad_cache``,
-``ring_cache``, ``decode_step``). The moe family serves; its training is
-not ported yet (``train_loss`` refuses it).
+``ring_cache``, ``decode_step``). Every family trains through
+``train_loss``.
 
 Parameters keep the reference's pytree layout as a plain dict: ``embed``,
 ``final_ln``, ``head`` (absent with tied embeddings) and ``layers``, whose
@@ -27,7 +27,6 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from . import layers as L
@@ -231,15 +230,9 @@ def _mamba_body(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _maybe_remat(fn, cfg: ModelConfig, x: torch.Tensor):
-    """``cfg.remat`` as ``torch.utils.checkpoint`` when autograd records
-    ``x``: a layer keeps only its inputs and is run again in the backward,
-    with the same numerics. "dots" (the reference keeps the matmul
-    outputs) recomputes the whole layer too. Serving is left as it is."""
-    if (cfg.remat in ("full", "dots") and torch.is_grad_enabled()
-            and x.requires_grad):
-        return lambda *args: torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
-    return fn
+    """``cfg.remat`` as :func:`layers.maybe_remat`. "dots" (the reference
+    keeps the matmul outputs) recomputes the whole layer too."""
+    return L.maybe_remat(fn, cfg.remat in ("full", "dots"), x)
 
 
 def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
@@ -332,14 +325,10 @@ def _hybrid_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Next-token CE (+ 0.01 aux, 0 for these families). batch: tokens
-    (B,S) [, patch_embeds (vlm), loss_mask (B,S)]; padded vocab columns
-    are masked before the softmax. The moe family's training is not
-    ported yet."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "train_loss: the moe family serves but does not train yet "
-            "(its aux loss and expert gradients are not ported)")
+    """Next-token CE + 0.01 aux (the moe family's load-balancing loss
+    summed over layers, 0 for the others). batch: tokens (B,S) [,
+    patch_embeds (vlm), loss_mask (B,S)]; padded vocab columns are masked
+    before the softmax."""
     hidden, aux, _ = forward_hidden(params, batch, cfg)
     if cfg.family == "vlm":  # the patches prepend; labels cover text only
         hidden = hidden[:, batch["patch_embeds"].shape[1]:, :]

@@ -452,13 +452,6 @@ def test_stack_frees_per_layer_copies_and_keeps_tokens(model):
                                       before.outputs[rid])
 
 
-def test_training_still_refuses_moe(model):
-    _, _, tcfg, _, tparams, _, _ = model
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="moe"):
-        TT.train_loss(tparams, {"tokens": toks}, tcfg)
-
-
 # (group count, rows, K, N, x type, w type): the phi3.5-moe expert and
 # down shapes at a decode's rows, the router, and the odd edges (N and K
 # off the tiles, one row)
