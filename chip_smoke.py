@@ -175,7 +175,8 @@ needed. Phases (any failure exits non-zero):
               1e-5, AdamW, f32) through repro_torch.launch.train.main
               in-process, under torch.use_deterministic_algorithms(True):
               yi-6b at full width cut to TRAIN_YI_LAYERS layers (30 steps
-              of 4 x 256 tokens) and mamba2-780m at full width and depth
+              of 4 x 256 tokens) and mamba2-780m at full width cut to
+              TRAIN_MAMBA_LAYERS layers
               (8 steps of 2 x 512); for each, one step's gradients against
               the plain path (fake_quant swapped: bit for bit; mamba2's SSD
               kernels swapped too, f32 dense mode: within TRAIN_GRAD_TOL),
@@ -326,6 +327,34 @@ needed. Phases (any failure exits non-zero):
               memory and one step profiled; at most
               TRAIN_FAMILIES_BUDGET_S seconds. Phase 8 times the grouped
               product at phi3.5-moe's training shapes (GM_TRAIN_SHAPES).
+ 17. dry-run - run after phase 16: the dry-run slice (the P17 constants),
+              each part run with the launch counts at 0 and read after.
+              (a) attn_chunk: yi-6b at full width cut to P17_YI_LAYERS,
+              bf16, chunked against unchunked prefill of P17_PROMPT tokens
+              through Engine (logits within P17_LOWP_TOL, greedy tokens by
+              the margin rule, the decode attention's launches exact),
+              then a chunked P17_LONG-token prefill, its time and peak
+              memory. (b) ssd_lowp: mamba2-780m cut to P17_MAMBA_LAYERS
+              through Engine, the intra-chunk block on the kernel's bf16
+              route against the plain lowp version; one QAT training step
+              at P17_MAMBA_TRAIN, launch counts exact (both SSD kernels),
+              every gradient leaf above 0, dense gradients within
+              P17_LOWP_TOL of the plain path's. (c) compressed DP
+              (train/compression.py) of yi-6b cut to P17_YI_LAYERS, f32
+              QAT, over P17_DP[0] replicas on the card: each step against
+              the plain step from the same state, the loss by the
+              reference test's bar and the compressed mean gradient by
+              error feedback's identity within P17_DP_TOL, a non-zero
+              error state, a bit-equal repeat, fake_quant launches
+              exact. (d) the GPipe pipeline
+              (train/pipeline.py) of P17_PIPE: outputs and gradients
+              against the sequential run, launches exact. (e) the dry run
+              (launch/dryrun.py) of yi-6b x train_4k on both production
+              meshes, a child process on the host started before phase 1:
+              both cells PASS with their records, or, under a torch older
+              than the dry run needs, its refusal. At most P17_BUDGET_S
+              seconds. Phase 8 times ssd_intra and its backward on the
+              lowp route at (b)'s shapes (times_lowp).
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -424,11 +453,13 @@ SSD_BWD_PASSES = 6
 # TRAIN_YI_LAYERS: AdamW holds 16 B a parameter with the gradient, and 2
 # layers are 0.87 G parameters (14 GB; the 64000 x 4096 embedding and head
 # are 0.52 G of them), 30 steps of 4 x 256 tokens. mamba2-780m at full width
-# and depth (0.86 G parameters), 8 steps of 2 x 512 tokens (two 256-token
-# chunks a row). Each run is stopped by SIGTERM after its STOP step and
-# resumed from that checkpoint. TRAIN_GRAD_TOL: the SSD kernels' gradients
-# against the plain path's at full depth in f32 dense mode, per leaf
-# (relative L2; f32 sums in another order through 48 layers).
+# with depth cut from 48 to TRAIN_MAMBA_LAYERS (the cut that pays for phase
+# 17: the run is host-bound, ~1.4 s a step at 48 layers), 8 steps of 2 x
+# 512 tokens (two 256-token chunks a row). Each run is stopped by SIGTERM
+# after its STOP step and resumed from that checkpoint. TRAIN_GRAD_TOL:
+# the SSD kernels' gradients against the plain path's in f32 dense mode,
+# per leaf (relative L2; f32 sums in another order through the layers;
+# set at 48).
 TRAIN_YI_LAYERS = 2
 TRAIN_YI_BATCH, TRAIN_YI_SEQ = 4, 256
 TRAIN_YI_ROWS = TRAIN_YI_BATCH * TRAIN_YI_SEQ
@@ -444,6 +475,7 @@ TRAIN_MAMBA = ["--arch", "mamba2-780m", "--batch", str(TRAIN_MAMBA_BATCH),
                "--seq", str(TRAIN_MAMBA_SEQ), "--steps", "8", "--log-every",
                "2", *TRAIN_COMMON]
 TRAIN_MAMBA_STOP = 5
+TRAIN_MAMBA_LAYERS = 24
 TRAIN_GRAD_TOL = 1e-3
 # phase 16 (train-families): QAT (w8a8, lasso 1e-5, f32, seed 0) training
 # of the families phase 10 does not train, at full width. phi3.5-moe cut
@@ -689,6 +721,36 @@ LLAVA_DA_VIEWS = (576 + LLAVA_PROMPT + LLAVA_NEW,
 # ... and its shape of the SSD intra-chunk block, (C, H, l, N, P)
 ZAMBA_SSD_SHAPE = (ZAMBA_BATCH * -(-ZAMBA_PROMPT // 256), 64, 256, 64, 64)
 FAMILIES_BUDGET_S = 120
+# phase 17 (dry-run slice): (a) yi-6b at full width cut to P17_YI_LAYERS,
+# bf16, attn_chunk P17_CHUNK, prompts of P17_PROMPT (chunked and not) and
+# P17_LONG (chunked) tokens, P17_NEW greedy tokens; (b) mamba2-780m at
+# full width cut to P17_MAMBA_LAYERS, ssd_lowp, P17_MAMBA_ROWS prompts of
+# P17_MAMBA_PROMPT through Engine, and one QAT training step at
+# P17_MAMBA_TRAIN (layers, batch, seq); (c) compressed DP of yi-6b at full
+# width cut to P17_YI_LAYERS, f32 QAT w8a8, AdamW, P17_DP (replicas, seq,
+# steps), one sequence a replica; (d) the GPipe pipeline over P17_PIPE
+# (stages = layers, microbatches, seq) of yi-6b's f32 QAT block; (e) the
+# dry run's yi-6b train_4k cell on both production meshes, in a child
+# process started before the build (host only)
+P17_YI_LAYERS = 2
+P17_CHUNK = 1024
+P17_PROMPT = 8192
+P17_LONG = 32768
+P17_NEW = 8
+P17_MAMBA_LAYERS = 4
+P17_MAMBA_ROWS = 2
+P17_MAMBA_PROMPT = 1024
+P17_MAMBA_NEW = 4
+P17_MAMBA_TRAIN = (2, 2, 512)
+P17_LOWP_TOL = 2e-2  # bf16: test_kernels.py's tolerance
+P17_DP = (4, 256, 3)
+P17_DP_LR = 1e-3
+# (c): the compressed mean's residual to the plain gradient plus the error
+# feedback, of the leaf's max |gradient| (f32 rounding)
+P17_DP_TOL = 1e-3
+P17_PIPE = (4, 8, 128)
+P17_BUDGET_S = 60
+DRYRUN_TIMEOUT = 900
 
 
 def log(*a) -> None:
@@ -857,6 +919,48 @@ def plain_kernels(kern, attention=False, grouped=False):
     finally:
         (K._run, FQ.fake_quant, SI.ssd_intra_chunk, DA.decode_attention,
          GM.grouped_matmul) = saved
+
+
+@contextlib.contextmanager
+def plain_ssd(kern):
+    """The ssd_intra wrapper alone swapped for its plain version (its
+    backward then autograd of the plain version); fake_quant and every
+    other op unchanged."""
+    SI = kern[2]
+    saved = SI.ssd_intra_chunk
+    SI.ssd_intra_chunk = SI.ssd_intra_chunk_plain
+    try:
+        yield
+    finally:
+        SI.ssd_intra_chunk = saved
+
+
+@contextlib.contextmanager
+def fake_quant_sites(kern, against=None):
+    """Records each fake_quant call's (input, output) in a list, or, given
+    such a record of a run that made the same calls, compares call by
+    call: ``(max |x - x'| / max |x'| of the inputs, output elements on
+    another level, elements)`` a call."""
+    FQ = kern[1]
+    real = FQ.fake_quant
+    out = []
+
+    def wrapped(x, *args, **kwargs):
+        y = real(x, *args, **kwargs)
+        if against is None:
+            out.append((x.detach().clone(), y.detach().clone()))
+        else:
+            x0, y0 = against[len(out)]
+            gap = float((x.detach() - x0).abs().max()
+                        / x0.abs().max().clamp_min(1e-30))
+            out.append((gap, int((y.detach() != y0).sum()), y0.numel()))
+        return y
+
+    FQ.fake_quant = wrapped
+    try:
+        yield out
+    finally:
+        FQ.fake_quant = real
 
 
 def da_inputs(torch, cfg, t, sv, gen, dtype, slots=N_SLOTS, q_dtype=None):
@@ -1278,7 +1382,10 @@ def check_ssd_intra(torch, SI, cfg):
                 again = SI.ssd_intra_chunk(*args, out_dtype=out)
                 torch.cuda.synchronize()
                 assert torch.equal(got, again), f"{what}: repeat"
-                want = SI.ssd_intra_chunk_plain(*args, out_dtype=out)
+                # the f32 plain version rounded once, as the kernel
+                # rounds (the plain version's own bf16 -> bf16 route
+                # rounds where ssd_lowp does; phase 17 holds that one)
+                want = SI.ssd_intra_chunk_plain(*args, out_dtype=f32).to(out)
                 torch.testing.assert_close(
                     got, want, rtol=tol, atol=tol,
                     msg=lambda m: f"{what}: {m}")
@@ -3527,15 +3634,17 @@ def train(torch, kern, card):
     """Phase "train": ``train_cli`` under
     ``torch.use_deterministic_algorithms(True)``, QAT (--cim) with the
     group lasso, AdamW, f32, on TokenPipeline, for yi-6b at full width
-    with depth cut to TRAIN_YI_LAYERS and mamba2-780m at full width and
-    depth. Returns the launch counts of the straight runs."""
+    with depth cut to TRAIN_YI_LAYERS and mamba2-780m at full width with
+    depth cut to TRAIN_MAMBA_LAYERS. Returns the launch counts of the
+    straight runs."""
     counts = {}
     t_phase = time.perf_counter()
     torch.use_deterministic_algorithms(True)
     try:
         for arch, argv, stop, layers in (
                 ("yi-6b", TRAIN_YI, TRAIN_YI_STOP, TRAIN_YI_LAYERS),
-                ("mamba2-780m", TRAIN_MAMBA, TRAIN_MAMBA_STOP, None)):
+                ("mamba2-780m", TRAIN_MAMBA, TRAIN_MAMBA_STOP,
+                 TRAIN_MAMBA_LAYERS)):
             counts[f"train {arch}"] = train_cli(torch, kern, arch, argv,
                                                 stop, layers, "train")
     finally:
@@ -5671,6 +5780,549 @@ def times_families(torch, kern):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 17 (dry-run slice)
+# ---------------------------------------------------------------------------
+
+
+def start_dryrun():
+    """Phase 17 (e)'s dry run, started before the build: ``python -m
+    repro_torch.launch.dryrun --arch yi-6b --shape train_4k --multi-pod
+    both`` on the host alone (no card visible to it, one thread), its
+    record in a temporary file and its output in another (a pipe unread
+    until phase 17 would fill and stall it). Returns (process, record
+    path, output path)."""
+    import tempfile
+    paths = []
+    for suffix in (".json", ".log"):
+        fd, path = tempfile.mkstemp(suffix=suffix, prefix="dryrun_")
+        os.close(fd)
+        paths.append(path)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    with open(paths[1], "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "yi-6b", "--shape", "train_4k", "--multi-pod", "both", "--out",
+             paths[0]], env=env, cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT, text=True)
+    return proc, paths[0], paths[1]
+
+
+def p17_attn_chunk(torch, kern):
+    """(a) The attn_chunk override: yi-6b at full width cut to
+    P17_YI_LAYERS, bf16, random weights from seed 0, through Engine. A
+    P17_PROMPT-token prompt prefilled chunked (attn_chunk P17_CHUNK; the
+    reference's condition takes the chunked path there) and unchunked:
+    the prefill logits within P17_LOWP_TOL of max |unchunked|, then
+    P17_NEW greedy tokens by the margin rule; the decode steps' attention
+    on the decode-attention kernel, a launch a layer a step. A
+    P17_LONG-token prompt prefilled chunked alone: its time and peak
+    memory (unchunked, its f32 scores alone would take 137 GB). Returns
+    the launch counts of the chunked run."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import init_params
+    cfg = registry.get_config("yi-6b", n_layers=P17_YI_LAYERS,
+                              attn_chunk=P17_CHUNK)
+    assert L.uses_chunked_attention(cfg, P17_PROMPT)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    fns = registry.model_fns(cfg)
+    toks = torch.randint(0, cfg.vocab, (1, P17_PROMPT), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(3))
+    reset_launches(kern)
+    out, rec = generate_recorded(torch, cfg, params, fns, {"tokens": toks},
+                                 P17_NEW)
+    got = launch_counts(kern)
+    plain_cfg = dataclasses.replace(cfg, attn_chunk=0)
+    out_p, rec_p = generate_recorded(torch, plain_cfg, params, fns,
+                                     {"tokens": toks}, P17_NEW)
+    want = {k: 0 for k in got}
+    want["decode_attention"] = cfg.n_layers * len(rec["decode"])
+    assert same_counts(got, want), ("attn_chunk", got, want)
+    lg, lg_p = rec["logits"][0], rec_p["logits"][0]
+    gap = float((lg - lg_p).abs().max() / lg_p.abs().max())
+    assert gap <= P17_LOWP_TOL, ("attn_chunk prefill logits", gap)
+    kept, low = margin_rule(torch, out, out_p, rec, rec_p, P17_NEW,
+                            MARGIN_TOL, "attn_chunk")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    long_toks = torch.randint(0, cfg.vocab, (1, P17_LONG), device=DEV,
+                              generator=torch.Generator(
+                                  device=DEV).manual_seed(4))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = fns.prefill(params, {"tokens": long_toks}, cfg)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    assert bool(torch.isfinite(logits.float()).all())
+    assert tuple(cache["k"].shape[:3]) == (cfg.n_layers, 1, P17_LONG)
+    log(json.dumps({"dry-run attn_chunk": {
+        "layers": cfg.n_layers, "chunk": P17_CHUNK, "prompt": P17_PROMPT,
+        "prefill_logits_max_rel_gap": gap, "tokens_equal_before_any_"
+        "divergence": kept, "of": int(out.size),
+        "unchunked_min_margin": low,
+        "prefill_s_chunked_unchunked": [rec["prefill"][0],
+                                        rec_p["prefill"][0]],
+        "long_prompt": P17_LONG, "long_prefill_s": long_s,
+        "long_max_memory_allocated_gb":
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": got}}))
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return got
+
+
+def p17_ssd_lowp(torch, kern):
+    """(b) The ssd_lowp override. mamba2-780m at full width cut to
+    P17_MAMBA_LAYERS, bf16, ssd_lowp, random weights from seed 0, through
+    Engine: P17_MAMBA_ROWS prompts of P17_MAMBA_PROMPT, the intra-chunk
+    block on the kernel's bf16 route (one launch a layer in the prefill),
+    against the plain lowp version (the wrapper swapped, every other op
+    unchanged): prefill logits within P17_LOWP_TOL of max |plain|, greedy
+    tokens by the margin rule. Then one QAT (w8a8) training step at
+    P17_MAMBA_TRAIN in f32 with ssd_lowp: exact launch counts (both SSD
+    kernels on their bf16 route), every gradient leaf above 0; the same
+    step with only the SSD kernels on their plain versions (fake_quant
+    on its kernel in both), on the lowp route and on the f32 one
+    (ssd_lowp off): the first layer's eq. 5/8 sites' inputs within
+    P17_LOWP_TOL / MAMBA_F32_TOL of max |plain|; every forward site's
+    input gap and share of outputs on another level, and the gradients'
+    gap (relative L2 per leaf), printed: a difference at a site moves
+    levels, the moves grow layer by layer, and they move the QAT
+    gradients by more than the forward's rounding, on either route
+    (PERF.md). In dense mode on the same weights, with no levels, the
+    kernel path's gradients within P17_LOWP_TOL of the plain lowp
+    path's. Returns the launch counts of the Engine run and of the
+    step."""
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import trainer as TR
+    from repro_torch.train.checkpoint import flatten
+    cfg = registry.get_config("mamba2-780m", n_layers=P17_MAMBA_LAYERS,
+                              ssd_lowp=True)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    fns = registry.model_fns(cfg)
+    toks = torch.randint(0, cfg.vocab, (P17_MAMBA_ROWS, P17_MAMBA_PROMPT),
+                         device=DEV, dtype=torch.int32,
+                         generator=torch.Generator(device=DEV).manual_seed(1))
+    reset_launches(kern)
+    out, rec = generate_recorded(torch, cfg, params, fns, {"tokens": toks},
+                                 P17_MAMBA_NEW)
+    got = launch_counts(kern)
+    want = dict({k: 0 for k in got}, ssd_intra_chunk=cfg.n_layers)
+    assert same_counts(got, want), ("ssd_lowp serve", got, want)
+    with plain_kernels(kern):
+        out_p, rec_p = generate_recorded(torch, cfg, params, fns,
+                                         {"tokens": toks}, P17_MAMBA_NEW)
+    lg, lg_p = rec["logits"][0], rec_p["logits"][0]
+    gap = float((lg - lg_p).abs().max() / lg_p.abs().max())
+    assert gap <= P17_LOWP_TOL, ("ssd_lowp prefill logits", gap)
+    kept, low = margin_rule(torch, out, out_p, rec, rec_p, P17_MAMBA_NEW,
+                            MARGIN_TOL, "ssd_lowp")
+    del params
+    torch.cuda.empty_cache()
+
+    layers, batch, seq = P17_MAMBA_TRAIN
+    qat = registry.get_config("mamba2-780m", n_layers=layers, ssd_lowp=True,
+                              dtype="float32", cim_mode="qat", w_bits=8,
+                              a_bits=8)
+    params = init_params(qat, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    params = TR.train_state(TR.TrainConfig(), params, opt_state={})["params"]
+    tb = {"tokens": torch.randint(0, qat.vocab, (batch, seq), device=DEV,
+                                  generator=torch.Generator(
+                                      device=DEV).manual_seed(2))}
+
+    def grads(c):
+        return TR.value_and_grad(TR.make_loss_fn(c), params, tb)[1]
+
+    reset_launches(kern)
+    g = grads(qat)
+    torch.cuda.synchronize()
+    got_t = train_counts(kern)
+    want_t = train_launches(qat, 1)
+    assert same_counts(got_t, want_t), ("ssd_lowp train", got_t, want_t)
+    zero = [k for k, t in flatten(g) if not float(t.norm()) > 0]
+    assert not zero, ("ssd_lowp train: no gradient", zero)
+    # the same QAT step with only the SSD kernels on their plain versions
+    # (fake_quant on its kernel in both), on the lowp route and on the
+    # f32 one: the forward's eq. 5/8 sites compared call by call (layer
+    # by layer, then the head), each site's input gap (of max |plain|)
+    # and share of outputs on another level, and the gradients' gap. The
+    # first layer's sites see the SSD block's difference alone (held
+    # within the route's tolerance); later ones also the levels that
+    # moved before them, and the gradients all of it (printed)
+    fq, head = train_sites(qat)[:2]
+    swapped = {}
+    for route, c, tol in (("lowp", qat, P17_LOWP_TOL),
+                          ("f32", dataclasses.replace(qat, ssd_lowp=False),
+                           MAMBA_F32_TOL)):
+        with fake_quant_sites(kern) as sites_k:
+            g = grads(c)
+        with plain_ssd(kern), fake_quant_sites(kern, sites_k) as sites_p:
+            g_qp = grads(c)
+        fwd = [[r[0], r[1] / r[2]] for r in sites_p[:fq + head]]
+        first = max(r[0] for r in fwd[:fq // c.n_layers])
+        swapped[route] = {"grads_max_rel_l2": list(grad_gap(torch, g, g_qp)),
+                          "forward_sites_input_gap_and_share_moved": fwd}
+        assert first <= tol, ("qat first layer sites", route, fwd)
+        del g, g_qp, sites_k, sites_p
+    dense = dataclasses.replace(qat, cim_mode="dense")
+    g_k = grads(dense)
+    with plain_kernels(kern):
+        g_p = grads(dense)
+    dgap, leaf = grad_gap(torch, g_k, g_p)
+    assert dgap <= P17_LOWP_TOL, ("ssd_lowp dense grads", leaf, dgap)
+    log(json.dumps({"dry-run ssd_lowp": {
+        "serve": {"layers": cfg.n_layers, "rows": P17_MAMBA_ROWS,
+                  "prompt": P17_MAMBA_PROMPT,
+                  "prefill_logits_max_rel_gap": gap,
+                  "tokens_equal_before_any_divergence": kept,
+                  "of": int(out.size), "plain_min_margin": low,
+                  "prefill_s_kernel_plain": [rec["prefill"][0],
+                                             rec_p["prefill"][0]],
+                  "launches": got},
+        "train": {"layers": layers, "batch": batch, "seq": seq,
+                  "launches": got_t, "dense_max_rel_l2": [dgap, leaf],
+                  "qat_ssd_swapped": swapped}}}))
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return {"dry-run ssd_lowp serve": got, "dry-run ssd_lowp train": got_t}
+
+
+def _fingerprint(torch, t):
+    """Two int64 sums of ``t``'s raw 32-bit words, the second weighted by
+    position: equal for equal bits, a bit flip moves them."""
+    w = t.contiguous().view(torch.int32).reshape(-1).long()
+    pos = torch.arange(w.numel(), device=w.device) % 8191 + 1
+    return int(w.sum()), int((w * pos).sum())
+
+
+def p17_compressed_dp(torch, kern):
+    """(c) Compressed data parallelism (``train/compression.py``) on a
+    single-controller mesh of P17_DP[0] replicas on the card: yi-6b at
+    full width cut to P17_YI_LAYERS, f32 QAT w8a8, AdamW (lr P17_DP_LR,
+    no clip), P17_DP[2] steps of P17_DP[0] x P17_DP[1] tokens, one
+    sequence a replica; each step against the plain step on the whole
+    batch from the same state (a copy): the loss within 1e-3 (the
+    reference test's bar), and, leaf by leaf, the compressed mean
+    gradient that the optimizer is given against the plain step's
+    gradient where magnitudes show. Error feedback makes the mean exactly
+    ``g_full + (sum_r err_in_r - sum_r err_out_r) / n``; that residual is
+    held within P17_DP_TOL of the leaf's max |g_full| (it is f32
+    rounding: the replicas' products run at other shapes than the whole
+    batch's), and the mean's distance to g_full, up to a level a replica,
+    is printed in scales of the leaf. (The AdamW parameter gap to the
+    plain step is printed only: from a fresh state Adam moves a parameter
+    by lr times its gradient's sign, so it cannot show the mean's size.)
+    A non-zero error state; a second run from the same weights equal bit
+    for bit (parameters, error state by fingerprint, losses); exact
+    fake_quant launches (forward and backward) of the first run. Under
+    ``torch.use_deterministic_algorithms(True)``. Returns its counts."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import trainer as TR
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.compression import (
+        init_error_state, make_compressed_dp_train_step)
+    from repro_torch.train.optimizer import leaves
+    n, seq, steps = P17_DP
+    cfg = registry.get_config("yi-6b", n_layers=P17_YI_LAYERS,
+                              dtype="float32", cim_mode="qat", w_bits=8,
+                              a_bits=8)
+    tcfg = TR.TrainConfig(opt=OPT.OptConfig(lr=P17_DP_LR, warmup_steps=1,
+                                            clip_norm=0.0))
+    pipe = TokenPipeline(cfg.vocab, n, seq, seed=0)
+    batches = [{"tokens": torch.as_tensor(pipe.next_batch()["tokens"],
+                                          device=DEV)} for _ in range(steps)]
+    mesh = make_local_mesh(n)
+    fresh = lambda: TR.init_train_state(
+        cfg, tcfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+
+    def compressed():
+        state = fresh()
+        state["err"] = init_error_state(state["params"], n)
+        return state, make_compressed_dp_train_step(cfg, tcfg, mesh)
+
+    # the gradient each step's optimizer is given (the plain step's and
+    # the compressed mean), as it is given it
+    given = []
+    real_apply = OPT.apply_updates
+
+    def apply_and_keep(cfg_, params, opt_state, grads, step_):
+        given.append(leaves(grads))
+        return real_apply(cfg_, params, opt_state, grads, step_)
+
+    torch.use_deterministic_algorithms(True)
+    OPT.apply_updates = apply_and_keep
+    try:
+        plain_step = TR.make_train_step(cfg, tcfg)
+        state, step = compressed()
+        losses, gaps, got, wall = [], [], {}, 0.0
+        for i, b in enumerate(batches):
+            plain = TR.train_state(
+                tcfg, OPT.tree_map(lambda t: t.detach().clone(),
+                                   state["params"]),
+                OPT.tree_map(lambda t: t.clone(), state["opt"]),
+                state["step"])
+            err_in = [e.sum(0) for e in leaves(state["err"])]
+            given.clear()
+            reset_launches(kern)
+            t0 = time.perf_counter()
+            _, m = step(state, b)
+            losses.append(float(m["loss"]))  # ends the step
+            wall += time.perf_counter() - t0
+            for k, v in train_counts(kern).items():
+                got[k] = got.get(k, 0) + v
+            _, mp = plain_step(plain, b)
+            (mean, g_full), worst = given, [0.0, 0.0, ""]
+            for (name, _), gm, gf, ei, e in zip(
+                    flatten(state["params"]), mean, g_full, err_in,
+                    leaves(state["err"])):
+                top = float(gf.abs().max().clamp_min(1e-30))
+                resid = float((gm - gf - (ei - e.sum(0)) / n).abs().max())
+                # the mean's own distance to g_full in levels of the
+                # leaf's scale (at most max |g32| / 127 a replica)
+                dist = float((gm - gf).abs().max()) / (
+                    float(gm.abs().max().clamp_min(1e-30)) / 127.0)
+                if resid / top >= worst[0]:
+                    worst = [resid / top, dist, name]
+            del mean, g_full, err_in
+            given.clear()
+            gap = max(float((a - p).detach().abs().max()) for a, p in zip(
+                leaves(state["params"]), leaves(plain["params"])))
+            gaps.append({"loss": abs(losses[-1] - float(mp["loss"])),
+                         "mean_residual_of_max_grad": worst[0],
+                         "its_mean_to_grad_in_scales": worst[1],
+                         "leaf": worst[2], "adamw_param_gap": gap})
+            assert gaps[-1]["loss"] < 1e-3, ("compressed dp loss", i, gaps)
+            assert worst[0] <= P17_DP_TOL, ("compressed dp mean", i, gaps)
+            del plain
+        want = train_launches(cfg, n * steps)
+        assert same_counts(got, want), ("compressed dp", got, want)
+        err_sum = sum(float(e.abs().sum()) for e in leaves(state["err"]))
+        assert err_sum > 0
+        keep = [p.clone() for p in leaves(state["params"])]
+        marks = [_fingerprint(torch, e) for e in leaves(state["err"])]
+        del state
+        torch.cuda.empty_cache()
+        again, step = compressed()
+        losses2 = [float(step(again, b)[1]["loss"]) for b in batches]
+        same = (losses2 == losses and all(
+            torch.equal(a, b) for a, b in zip(leaves(again["params"]), keep))
+            and marks == [_fingerprint(torch, e)
+                          for e in leaves(again["err"])])
+        assert same, ("compressed dp repeat", losses, losses2)
+    finally:
+        OPT.apply_updates = real_apply
+        torch.use_deterministic_algorithms(False)
+    log(json.dumps({"dry-run compressed-dp": {
+        "replicas": n, "seq": seq, "steps": steps, "layers": cfg.n_layers,
+        "losses": losses, "gaps_to_plain": gaps,
+        "err_abs_sum": err_sum, "repeat": "bit for bit",
+        "wall_s": wall, "launches": got}}))
+    del again, keep
+    torch.cuda.empty_cache()
+    return got
+
+
+def p17_pipeline(torch, kern):
+    """(d) The GPipe pipeline (``train/pipeline.py``) over a
+    single-controller mesh of P17_PIPE[0] stages on the card, one yi-6b
+    layer a stage (full width, f32 QAT w8a8, random weights from seed 0),
+    P17_PIPE[1] microbatches of one P17_PIPE[2]-token sequence: outputs
+    within 1e-5 and gradients of sum(y^2) within 1e-4 (each of max |...|)
+    of the sequential run of the same layers over each microbatch, each
+    layer call under remat. The schedule's launches: fake_quant 14 a
+    layer call in all (M + S - 1) S calls forward and again in the M S
+    calls whose outputs reach the loss (remat runs them again in the
+    backward), its backward in those M S. Returns the counts of the
+    pipelined run."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.pipeline import (pipeline_apply, scan_stage,
+                                            stack_stages)
+    s_n, m, seq = P17_PIPE
+    torch.cuda.empty_cache()
+    cfg = registry.get_config("yi-6b", n_layers=s_n, dtype="float32",
+                              cim_mode="qat", w_bits=8, a_bits=8)
+    layers = T.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                           DEV)["layers"]
+    layers = {k: v.detach().requires_grad_() for k, v in layers.items()}
+    pos = torch.arange(seq, device=DEV)[None, :]
+    body = lambda p, x: T._attn_mlp_body(p, x, cfg, 0, None, pos)[0]
+    # each layer call under remat (the config's "full"), as the model's
+    # own loop runs it: a QAT layer otherwise keeps its re-quantized
+    # weights for the backward in every one of the schedule's calls
+    layer_fn = lambda p, x: torch.utils.checkpoint.checkpoint(
+        body, p, x, use_reentrant=False, preserve_rng_state=False)
+    xs = torch.randn((m, 1, seq, cfg.d_model), device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(5))
+    names = sorted(layers)
+    fn = pipeline_apply(scan_stage(layer_fn), s_n,
+                        make_local_mesh(s_n, names=("pipe",)), "pipe")
+    reset_launches(kern)
+    t0 = time.perf_counter()
+    y = fn(stack_stages(layers, s_n), xs)
+    g = torch.autograd.grad((y ** 2).sum(), [layers[k] for k in names])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = train_counts(kern)
+    want = {k: 0 for k in got}
+    want.update(fake_quant=14 * ((m + s_n - 1) * s_n + m * s_n),
+                fake_quant_bwd=14 * m * s_n)
+    assert same_counts(got, want), ("pipeline", got, want)
+    outs = []
+    for j in range(m):
+        x = xs[j]
+        for i in range(s_n):
+            x = layer_fn({k: v[i] for k, v in layers.items()}, x)
+        outs.append(x)
+    want_y = torch.stack(outs)
+    g2 = torch.autograd.grad((want_y ** 2).sum(), [layers[k] for k in names])
+    y_gap = float((y - want_y).detach().abs().max()
+                  / want_y.detach().abs().max())
+    g_gap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(g, g2))
+    assert y_gap <= 1e-5 and g_gap <= 1e-4, ("pipeline", y_gap, g_gap)
+    log(json.dumps({"dry-run pipeline": {
+        "stages": s_n, "microbatches": m, "seq": seq, "ticks": m + s_n - 1,
+        "out_max_rel_gap": y_gap, "grad_max_rel_gap": g_gap,
+        "wall_s": wall, "launches": got}}))
+    del layers, g, g2, y, want_y
+    torch.cuda.empty_cache()
+    return got
+
+
+def p17_dryrun(dry):
+    """(e) The dry run's record, read from the child started before the
+    build: yi-6b x train_4k on the (16, 16) and (2, 16, 16) production
+    meshes. Under a torch the dry run supports (``dryrun.check_torch``:
+    REQUIRED_TORCH or later, its DTensor internals present) it exits 0
+    and both cells PASS, each a record with the reference's keys; under
+    an older torch it must refuse (exit 2, naming the torch it needs) and
+    the phase says so."""
+    from repro_torch.launch import dryrun as DR
+    proc, path, log_path = dry
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        out = f.read()
+    try:
+        DR.check_torch()
+    except RuntimeError as e:
+        assert proc.returncode == 2 and "needs torch >=" in out, (
+            "dry run", proc.returncode, out[-2000:])
+        log(f"[dry-run] not run: {e}")
+        return
+    for ln in out.splitlines():
+        if ln.startswith(("PASS", "FAIL")):
+            log(f"[dry-run] {ln}")
+    assert proc.returncode == 0, ("dry run", proc.returncode, out[-2000:])
+    with open(path) as f:
+        rec = json.load(f)
+    assert len(rec["results"]) == 2 and not rec["failures"], rec
+    keys = {"arch", "shape", "mesh", "cim", "opt", "compile_s",
+            "argument_bytes_per_dev", "output_bytes_per_dev",
+            "temp_bytes_per_dev", "peak_bytes_per_dev"}
+    for r in rec["results"]:
+        assert keys <= set(r), r
+        if r["mesh"] == "16x16":
+            assert {"t_compute_s", "bottleneck", "roofline_fraction"} <= set(
+                r), r
+        log(json.dumps({"dry-run record": r}))
+
+
+def dryrun_slice(torch, kern, card, dry):
+    """Phase 17 (dry-run slice): (a)-(e) of the P17 constants, each run
+    with the launch counts at 0 and read after; at most P17_BUDGET_S
+    seconds on the card (the dry run's child runs beside phases 1-16).
+    Returns the counts."""
+    t_phase = time.perf_counter()
+    counts = {"dry-run attn_chunk": p17_attn_chunk(torch, kern)}
+    counts.update(p17_ssd_lowp(torch, kern))
+    counts["dry-run compressed-dp"] = p17_compressed_dp(torch, kern)
+    counts["dry-run pipeline"] = p17_pipeline(torch, kern)
+    t_card = time.perf_counter() - t_phase
+    p17_dryrun(dry)
+    secs = time.perf_counter() - t_phase
+    log(f"[dry-run] phase {secs:.1f} s, {t_card:.1f} s of it on the card "
+        f"({card})")
+    assert secs <= P17_BUDGET_S, secs
+    return counts
+
+
+def times_lowp(torch, SI):
+    """Phase 8 at phase 17's shapes, the ssd_lowp route: ssd_intra_chunk
+    at (b)'s serving shape, bf16 in and out, against the plain lowp
+    version; its backward at (b)'s training shape, bf16 operands and dy,
+    against autograd of the plain lowp version. Bounds as phase 8's rows,
+    at bf16 sizes."""
+    from repro_torch.models import registry
+    cfg = registry.get_config("mamba2-780m")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    l, H, N = cfg.ssm_chunk, cfg.n_ssm_heads, cfg.ssm_state
+    P = cfg.d_inner // H
+    rows = []
+    for label, C in (("ssd_intra lowp serve",
+                      P17_MAMBA_ROWS * P17_MAMBA_PROMPT // l),
+                     ("ssd_intra_bwd lowp train",
+                      P17_MAMBA_TRAIN[1] * P17_MAMBA_TRAIN[2] // l)):
+        a = -torch.nn.functional.softplus(torch.randn(
+            (C, H, l), generator=gen, device=DEV))
+        b, c = (torch.randn((C, l, N), generator=gen, device=DEV).to(bf16)
+                for _ in range(2))
+        x = torch.randn((C, l, H, P), generator=gen, device=DEV).to(bf16)
+        pairs = l * (l + 1) // 2
+        if "bwd" not in label:
+            nbytes = 4 * C * H * l + 2 * (2 * C * l * N + 2 * C * l * H * P)
+            flops = C * (2 * pairs * N + H * 2 * pairs * P)
+            run = lambda: SI.ssd_intra_chunk(a, b, c, x, out_dtype=bf16)
+            plain = lambda: SI.ssd_intra_chunk_plain(a, b, c, x,
+                                                     out_dtype=bf16)
+            names = ("ssd_intra",)
+        else:
+            dy = torch.randn((C, l, H, P), generator=gen, device=DEV).to(bf16)
+            # as phase 8's backward row, at bf16 sizes for b, c, x, dy and
+            # their gradients (a and da f32); one plane a bf16 operand
+            nbytes = (8 * C * H * l + 2 * (4 * C * l * N + 3 * C * l * H * P))
+            flops = 2 * C * pairs * (3 * N + 2 * H * P)
+            run = lambda: SI.ssd_intra_chunk_bwd(a, b, c, x, dy)
+
+            def plain():
+                ins = [t.detach().requires_grad_() for t in (a, b, c, x)]
+                y = SI.ssd_intra_chunk_plain(*ins, out_dtype=bf16)
+                return torch.autograd.grad(y, ins, dy)
+            names = ("ssd_bwd_scores", "ssd_bwd_main", "ssd_bwd_finish")
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)
+        row = {"shape": label, "entry": ("ssd_intra_chunk_bwd" if "bwd"
+                                         in label else "ssd_intra_chunk"),
+               "dims": {"C": C, "H": H, "l": l, "N": N, "P": P},
+               "dtype": "bfloat16 (ssd_lowp)",
+               "kernel_ms": time_ms(torch, run, flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": time_ms(torch, plain, flush, iters=10),
+               "library_ms": None,
+               "device_ms": device_split(torch, run, flush, names)}
+        log(json.dumps(row))
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     # the train phase runs under torch.use_deterministic_algorithms, whose
     # cuBLAS needs a fixed workspace, read when cuBLAS starts
@@ -5680,17 +6332,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     search = start_full_search()
+    dry = start_dryrun()
     try:
-        return run_all(torch, search)
+        return run_all(torch, search, dry)
     finally:
-        if search.poll() is None:
-            search.kill()
-            search.wait()
+        for proc in (search, dry[0]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in dry[1:]:
+            if os.path.exists(path):
+                os.unlink(path)
 
 
-def run_all(torch, search) -> int:
-    """Phases 1-16 (see the module docstring); ``search`` is the
-    schedule search's process, read by phase 9."""
+def run_all(torch, search, dry) -> int:
+    """Phases 1-17 (see the module docstring); ``search`` is the
+    schedule search's process, read by phase 9, ``dry`` the dry run's
+    (process, output path), read by phase 17."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import quant as Q
     from repro_torch.kernels import _build
@@ -5795,6 +6453,7 @@ def run_all(torch, search) -> int:
     counts.update(gateway(torch, kern, cfg, sp, card))
     counts.update(families(torch, kern, card))
     counts.update(train_families(torch, kern, card))
+    counts.update(dryrun_slice(torch, kern, card, dry))
     max_err.update(macro_err)
     max_err["bsr_matmul"] = max(max_err["bsr_matmul"], deploy_err)
 
@@ -5812,7 +6471,8 @@ def run_all(torch, search) -> int:
             + cnn_rows + times_cnn(torch, kern)
             + times_grouped_matmul(torch, GM)
             + times_macro(torch, K, Q, sp, sxp, sharded)
-            + times_families(torch, kern))
+            + times_families(torch, kern)
+            + times_lowp(torch, SI))
     del sharded
     pick = {"bsr_matmul_stacked": "w_gate decode", "bsr_matmul": "head decode",
             "fake_quant": "fake_quant act prefill",
@@ -5877,7 +6537,7 @@ def run_all(torch, search) -> int:
                 worst_kernel_over_library=worst["kernel_ms"]
                 / worst["library_ms"])
     log(json.dumps({"kernels": kernels}))
-    log(f"[run] phases 1-16 in {time.perf_counter() - t_run:.1f} s")
+    log(f"[run] phases 1-17 in {time.perf_counter() - t_run:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..device import PLAIN_DEVICES
 from . import _build
 
 MACRO_AXIS = "macro"  # the serving mesh's axis (launch.shardings)
@@ -279,12 +280,12 @@ def _layer_tensor(layer: Layer, device: torch.device) -> torch.Tensor:
 
 def _run(entry, x, blocks, scales, row_idx, nnz, layer: Layer,
          plan_go: Optional[int] = None):
-    """One call: the plain version for CPU tensors, else one launch,
-    planned for ``plan_go`` block columns (``launch_plan``; default the
-    blocks' own)."""
+    """One call: the plain version for CPU (or meta) tensors, else one
+    launch, planned for ``plan_go`` block columns (``launch_plan``;
+    default the blocks' own)."""
     _check(x, blocks, scales, row_idx, nnz)
     if not x.is_cuda:
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             return bsr_matmul_stacked_plain(x, blocks, scales, row_idx, nnz,
                                             layer)
         raise ValueError(f"unsupported device {x.device}")

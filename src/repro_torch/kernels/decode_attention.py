@@ -22,8 +22,9 @@ order and the chunks added in ascending order, whatever launch
 :func:`row_sum`. The two agree to a few ulps of the input type (their sums
 run in different orders). ``k_new``/``v_new`` stand in for the view's keys
 at the query positions, so the paged pass need not copy its view. The
-wrapper takes the plain version only for tensors on the CPU; on CUDA
-tensors it launches the kernel (one launch a call) or raises.
+wrapper takes the plain version only for tensors on the CPU (or the meta
+device, shapes only); on CUDA tensors it launches the kernel (one launch
+a call) or raises.
 ``LAUNCHES`` counts the launches.
 """
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..device import PLAIN_DEVICES
 from . import _build
 
 LAUNCHES = 0
@@ -309,9 +311,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     so the caller need not copy its view to splice them in. The result is
     in the promoted type of all inputs; bf16 K/V under f32 q are read as
     they are (the kernel widens them exactly), never copied. On the kernel
-    for CUDA tensors, the plain version for CPU ones; (B, T, H, dh) in the
-    promoted input type."""
-    if q.device.type == "cpu":
+    for CUDA tensors, the plain version for CPU (or meta) ones; (B, T, H,
+    dh) in the promoted input type."""
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention_plain(q, k, v, pos, window, n_true, k_new,
                                       v_new)
     if q.device.type != "cuda":

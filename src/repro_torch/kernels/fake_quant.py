@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from ..device import PLAIN_DEVICES
 from . import _build
 
 LAUNCHES = 0
@@ -153,7 +154,7 @@ def fake_quant(x: torch.Tensor, bits: int, signed: bool = False,
     ``x`` is made contiguous first."""
     out_dtype = _check(x, bits, out_dtype)
     _check_ste(ste)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return fake_quant_plain(x, bits, signed, out_dtype, ste)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
@@ -231,9 +232,9 @@ def fake_quant_bwd(grad: torch.Tensor, x: Optional[torch.Tensor], bits: int,
                    signed: bool = False, ste: str = "clip",
                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The straight-through backward (module docstring) on its kernel; the
-    plain version only for a tensor on the CPU."""
+    plain version only for a tensor on the CPU or the meta device."""
     dtype = _check_bwd(grad, x, bits, ste, dtype)
-    if grad.device.type == "cpu":
+    if grad.device.type in PLAIN_DEVICES:
         return fake_quant_bwd_plain(grad, x, bits, signed, ste, dtype)
     if grad.device.type != "cuda":
         raise ValueError(f"unsupported device {grad.device}")

@@ -23,7 +23,8 @@ the widened copy, and an f32 w under bf16 x is rounded to bf16 first, as
 ``x @ w.to(x.dtype)`` does. ``counts`` (G,) int, when given, is each
 group's number of filled rows: rows at or past it come out as zeros.
 
-The wrapper takes the plain version only for tensors on the CPU; for CUDA
+The wrapper takes the plain version only for tensors on the CPU (or the
+meta device, shapes only); for CUDA
 tensors it launches the kernel (one launch a call) or raises.
 ``LAUNCHES`` counts the launches.
 
@@ -51,6 +52,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..device import PLAIN_DEVICES
 from . import _build
 
 LAUNCHES = 0
@@ -296,11 +298,11 @@ def _tma_operand(t: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[g] = x[g] @ w[g] in x's type (module docstring) on the kernel for
-    CUDA tensors, the plain version for CPU ones. ``x`` and ``w`` may be
-    views whose rows are contiguous (strides of their own); other layouts
-    are copied, as are operands the tensor maps cannot take.
+    CUDA tensors, the plain version for CPU (or meta) ones. ``x`` and
+    ``w`` may be views whose rows are contiguous (strides of their own);
+    other layouts are copied, as are operands the tensor maps cannot take.
     Differentiable (module docstring): the backward never launches."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return grouped_matmul_plain(x, w, counts)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")

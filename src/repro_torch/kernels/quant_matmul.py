@@ -19,8 +19,9 @@ second kernel, so the result is the same bits in every run) and
 the load path: 16-byte asynchronous copies when ``is_aligned`` holds,
 element-wise masked loads otherwise. Any M, N, K
 works on either path; nothing is padded in memory. The wrapper takes the
-plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises. ``LAUNCHES`` counts entry-point calls that launched,
+plain version only for tensors on the CPU (or the meta device, shapes
+only); for CUDA tensors it launches the kernel or raises. ``LAUNCHES``
+counts entry-point calls that launched,
 ``LAUNCHES_BY_PATH`` the same calls by load path.
 """
 from __future__ import annotations
@@ -31,6 +32,7 @@ import functools
 
 import torch
 
+from ..device import PLAIN_DEVICES
 from . import _build
 
 LAUNCHES = 0
@@ -166,7 +168,7 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor,
     contiguous."""
     _check(x, w, scale)
     if not x.is_cuda:
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             return quant_matmul_plain(x, w, scale)
         raise ValueError(f"unsupported device {x.device}")
     if w.device != x.device or scale.device != x.device:

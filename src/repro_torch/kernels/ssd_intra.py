@@ -20,7 +20,8 @@ for a group of heads, ``(S * L) @ x`` with S * L as a bf16 hi plane and a lo
 plane (``split_hi_lo`` is the CPU twin of that split), f32 operands as three
 exact bf16 planes. ``plan`` picks the head group and the grid from the
 shapes and the SM count. The wrapper takes the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+tensors on the CPU (or the meta device, shapes only); for CUDA tensors it
+launches the kernel or raises.
 ``LAUNCHES`` counts the launches, ``LAUNCHES_BY_PATH`` the same launches by
 operand type and load path.
 
@@ -51,6 +52,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..device import PLAIN_DEVICES
 from . import _build
 
 LAUNCHES = 0
@@ -265,14 +267,25 @@ def ssd_intra_chunk_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                           out_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
     """Plain PyTorch version: the (C, H, l, l) decay and score tensors are
-    built in full, in f32."""
+    built in full, in f32. With b, c, x and the result all bf16 (the
+    reference's ``ssd_lowp``) it rounds where the reference's bf16 einsum
+    does instead: the decay L to bf16, and C B^T, its product with L and
+    the product with x each in bf16."""
     _check(a, b, c, x)
+    bf = torch.bfloat16
+    lowp = (out_dtype or x.dtype) == bf and all(
+        t.dtype == bf for t in (b, c, x))
     l = a.shape[-1]
     cum = a.float().cumsum(-1)
     causal = torch.ones((l, l), dtype=torch.bool, device=a.device).tril()
     diff = (cum[..., :, None] - cum[..., None, :]).masked_fill(
         ~causal, float("-inf"))  # exp(-inf) = 0: no overflow above i = j
     decay = torch.exp(diff)  # (C, H, l, l)
+    if lowp:
+        s = torch.einsum("cin,cjn->cij", c.to(bf), b.to(bf))
+        y = torch.einsum("chij,cjhp->cihp", decay.to(bf) * s[:, None],
+                         x.to(bf))
+        return y.to(out_dtype or x.dtype)
     s = torch.einsum("cin,cjn->cij", c.float(), b.float())
     y = torch.einsum("chij,cjhp->cihp", decay * s[:, None], x.float())
     return y.to(out_dtype or x.dtype)
@@ -295,9 +308,13 @@ def ssd_intra_chunk(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                     x: torch.Tensor, out_dtype: Optional[torch.dtype] = None
                     ) -> torch.Tensor:
     """Batched intra-chunk SSD (module docstring) on the kernel,
-    differentiable through the backward kernel."""
+    differentiable through the backward kernel. With b, c, x and the
+    result bf16 (the reference's ``ssd_lowp``) the plain version rounds
+    where the reference does (:func:`ssd_intra_chunk_plain`); the kernel's
+    bf16 route keeps its f32 products and rounds once, at the end, and is
+    held to that plain version within the bf16 tolerance."""
     _check(a, b, c, x)
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES:
         return ssd_intra_chunk_plain(a, b, c, x, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
@@ -370,7 +387,7 @@ def ssd_intra_chunk_bwd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if tuple(dy.shape) != tuple(x.shape):
         raise ValueError(f"dy {tuple(dy.shape)} must have x's shape "
                          f"{tuple(x.shape)}")
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES:
         return ssd_intra_chunk_bwd_plain(a, b, c, x, dy)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")

@@ -1,5 +1,6 @@
 """Model configuration (the fields of ``repro.models.config.ModelConfig``);
-``param_dtype`` is a ``torch.dtype``."""
+``param_dtype`` is a ``torch.dtype``. ``SHAPES`` are the reference's input
+shape cells, which the dry run sweeps."""
 from __future__ import annotations
 
 import dataclasses
@@ -125,3 +126,23 @@ class ModelConfig:
             return tuple(1 if (i % self.attn_every == self.attn_every - 1)
                          else 0 for i in range(self.n_layers))
         return tuple(0 for _ in range(self.n_layers))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: ``global_batch`` sequences of ``seq_len``
+    positions in a train step, a prefill, or a decode step over a cache of
+    ``seq_len`` positions."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -32,7 +32,7 @@ from ..core import deploy
 from ..core import quant as Q
 from ..core.cim_layer import CIMConfig
 from ..kernels import ops
-from ..launch.shardings import KVShards
+from ..launch.shardings import KVShards, constrain
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -161,24 +161,80 @@ def qkv_project(p: dict, x: torch.Tensor, cfg, cim: CIMConfig):
     return q, k, v
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      n_heads: int, chunk: int, window: int = 0,
+                      offset: int = 0, n_true: int = 0) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``chunk`` keys, never
+    building the (Sq, Sk) scores (the reference's ``chunked_attention``,
+    plain torch as the reference's is plain jnp). q: (B,Sq,H,dh); k, v:
+    (B,Sk,KV,dh) un-expanded, each chunk expanded to ``n_heads`` by the
+    true ratio ``n_true`` (:func:`_expand_kv`). Causal with an optional
+    sliding ``window``; ``offset`` is the absolute position of q row 0
+    minus k row 0. The last chunk is zero-padded and its padding masked.
+    The running max, sum and output are f32; the result is ``q.dtype``."""
+    b, sq, _, dh = q.shape
+    sk = k.shape[1]
+    pad = (-sk) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qi = (torch.arange(sq, device=q.device) + offset)[:, None]
+    # 1 / sqrt(dh) rounded to f32, as the reference's jnp scalar
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(dh))))
+    q32 = q.float()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((b, n_heads, sq), NEG_INF, **f32)
+    l = torch.zeros((b, n_heads, sq), **f32)
+    acc = torch.zeros((b, sq, n_heads, dh), **f32)
+    for kj0 in range(0, k.shape[1], chunk):
+        ke = _expand_kv(k[:, kj0:kj0 + chunk], n_heads, n_true).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, ke) * scale  # (B,H,Sq,C)
+        kj = kj0 + torch.arange(chunk, device=q.device)[None, :]
+        mask = (kj <= qi) & (kj < sk)
+        if window > 0:
+            mask = mask & (kj > qi - window)
+        s = torch.where(mask[None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)  # (B,H,Sq)
+        l = l * alpha + p.sum(dim=-1)
+        ve = _expand_kv(v[:, kj0:kj0 + chunk], n_heads, n_true).float()
+        pv = torch.einsum("bhqk,bkhd->bqhd", p, ve)
+        acc = acc * alpha.transpose(1, 2)[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l.transpose(1, 2)[..., None], min=1e-30)
+    return out.to(q.dtype)
+
+
+def uses_chunked_attention(cfg, s: int) -> bool:
+    """Whether a prefill of ``s`` positions takes :func:`chunked_attention`:
+    the reference's condition, ``attn_chunk`` set and ``s >= max(4 *
+    attn_chunk, 8192)`` (below that the unchunked scores are cheaper)."""
+    chunk = cfg.attn_chunk
+    return bool(chunk) and s >= max(4 * chunk, 8192)
+
+
 def self_attention(p: dict, x: torch.Tensor, cfg, window: int = 0,
                    positions: Optional[torch.Tensor] = None,
                    use_rope: bool = True
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal self-attention (prefill). Returns (y, (k, v))."""
+    """Full-sequence causal self-attention (train, prefill), chunked under
+    :func:`uses_chunked_attention`. Returns (y, (k, v))."""
     b, s, _ = x.shape
     nh = cfg.n_heads_eff
-    if cfg.attn_chunk:
-        raise NotImplementedError("chunked attention is not ported yet")
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = qkv_project(p, x, cfg, cfg.cim)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    mask = causal_mask(s, s, window, device=x.device)
-    o = attention_scores(q, _expand_kv(k, nh, cfg.n_heads),
-                         _expand_kv(v, nh, cfg.n_heads), mask)
+    if uses_chunked_attention(cfg, s):
+        o = chunked_attention(q, k, v, nh, cfg.attn_chunk, window=window,
+                              n_true=cfg.n_heads)
+    else:
+        mask = causal_mask(s, s, window, device=x.device)
+        o = attention_scores(q, _expand_kv(k, nh, cfg.n_heads),
+                             _expand_kv(v, nh, cfg.n_heads), mask)
     y = cim_matmul(o.reshape(b, s, nh * cfg.dh), p["wo"], cfg.cim)
     return y, (k, v)
 
@@ -396,6 +452,13 @@ def moe_block(p: dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
     cim = cfg.cim
     e, k, split = cfg.n_experts, cfg.top_k, cfg.expert_split
     rt = moe_route(p, x, cfg)
+    if cfg.moe_hints:
+        # the reference's hints: the routing tensors stay sharded over the
+        # data axis by token group (batch-major), so the expert exchange
+        # happens at the dispatch, not while routing is built (a no-op on
+        # plain tensors)
+        rt.onehot = constrain(rt.onehot, ("data", None, None, None))
+        rt.gate = constrain(rt.gate, ("data", None, None))
     g0, gs = rt.idx.shape[:2]
     rmax = g0 * rt.cap
     # kept rows an expert takes from each group, and where each group's

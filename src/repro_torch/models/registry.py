@@ -8,6 +8,21 @@ from typing import Callable
 from . import encdec, transformer
 from .config import ModelConfig
 
+# the language models of the zoo, in the reference's order (the CNNs have
+# configs too, but no cells)
+ARCH_IDS = [
+    "llava-next-34b",
+    "mamba2-780m",
+    "zamba2-1.2b",
+    "whisper-tiny",
+    "stablelm-12b",
+    "yi-6b",
+    "gemma3-27b",
+    "granite-8b",
+    "phi3.5-moe-42b-a6.6b",
+    "grok-1-314b",
+]
+
 # the families the port serves: models.encdec's and models.transformer's
 FAMILIES = transformer.FAMILIES + ("encdec",)
 
@@ -50,3 +65,14 @@ def get_config(arch: str, **overrides) -> ModelConfig:
 def get_smoke_config(arch: str, **overrides) -> ModelConfig:
     cfg = _module(arch).SMOKE
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def supported_cells(arch: str):
+    """The (arch x shape) cells of ``config.SHAPES`` that ``arch`` takes:
+    long_500k only for the sub-quadratic decoders (ssm, hybrid, and the
+    sliding-window pattern), as the reference's."""
+    cfg = get_config(arch)
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in ("ssm", "hybrid") or cfg.local_global_ratio > 0:
+        cells.append("long_500k")
+    return cells

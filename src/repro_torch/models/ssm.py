@@ -35,10 +35,14 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD scan. x: (B,S,H,P); a = dt*A: (B,S,H) (negative); b, c: (B,S,N)
     (one group, shared across heads). Returns (y: (B,S,H,P), h_final:
-    (B,H,P,N)), both in ``x.dtype``."""
-    if intra_dtype != torch.float32:
-        raise NotImplementedError("intra_dtype other than float32 "
-                                  "(ssd_lowp) is not ported")
+    (B,H,P,N)), both in ``x.dtype``. ``intra_dtype`` bf16 is the
+    reference's ``ssd_lowp``: the intra-chunk block takes b, c and x in
+    bf16 and gives its result in bf16 (on the kernel's bf16 route); the
+    decays, states and the inter-chunk terms stay f32."""
+    if intra_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"intra_dtype must be float32 or bfloat16, got "
+                         f"{intra_dtype}")
+    lowp = intra_dtype == torch.bfloat16
     bsz, s, n_h, p = x.shape
     n = b.shape[-1]
     pad = (-s) % chunk
@@ -58,12 +62,14 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     a_cum = ac.cumsum(-1)
 
     # 1) intra-chunk block on the kernel, kept in f32 until the sum below
+    # (in bf16 under ssd_lowp; the sum promotes it to f32, as jnp does)
+    cast = (lambda t: t.to(torch.bfloat16)) if lowp else (lambda t: t)
     y_diag = K.ssd_intra_chunk(
         ac.reshape(bsz * nc, n_h, chunk).contiguous(),
-        b.reshape(bsz * nc, chunk, n).contiguous(),
-        c.reshape(bsz * nc, chunk, n).contiguous(),
-        x.reshape(bsz * nc, chunk, n_h, p).contiguous(),
-        out_dtype=torch.float32,
+        cast(b).reshape(bsz * nc, chunk, n).contiguous(),
+        cast(c).reshape(bsz * nc, chunk, n).contiguous(),
+        cast(x).reshape(bsz * nc, chunk, n_h, p).contiguous(),
+        out_dtype=intra_dtype,
     ).reshape(bsz, nc, chunk, n_h, p)
 
     # 2) per-chunk final states (jnp promotes the mixed operands to f32)

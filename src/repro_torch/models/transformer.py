@@ -29,6 +29,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..launch.shardings import constrain
 from . import layers as L
 from . import ssm as SSM
 from .config import ModelConfig
@@ -153,7 +154,12 @@ def _attn_mlp_body(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
                                 positions=positions)
     x = x + attn
     y, aux = mlp(p, L.rmsnorm(x, p["ln2"]), cfg)
-    return x + y, aux, kv
+    x = x + y
+    if cfg.seq_shard_residual:
+        # the reference's Megatron-SP hint: the residual stream's sequence
+        # dim over the TP axis between layers (a no-op on plain tensors)
+        x = constrain(x, ("data", "model", None))
+    return x, aux, kv
 
 
 def mlp(p: dict, h: torch.Tensor, cfg: ModelConfig):

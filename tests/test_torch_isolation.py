@@ -117,3 +117,37 @@ def test_family_slice_modules_are_walked():
     for mod in ("models.encdec", "models.transformer", "configs.zamba2_1_2b",
                 "configs.whisper_tiny", "configs.llava_next_34b"):
         assert f"repro_torch.{mod}" in names, mod
+
+
+def test_dry_run_slice_modules_are_walked():
+    """The import walk above reaches the dry-run slice's modules."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    for mod in ("launch.mesh", "launch.dryrun", "launch.shardings",
+                "train.compression", "train.pipeline"):
+        assert f"repro_torch.{mod}" in names, mod
+
+
+def test_imports_make_no_process_group():
+    """Importing ``repro_torch`` and every submodule creates no process
+    group and imports no module of ``torch.testing._internal`` (where the
+    fake store lives) beyond those ``import torch`` itself loads: only
+    ``launch.mesh.make_production_mesh`` does, when called."""
+    code = (
+        "import importlib, pkgutil, sys, torch\n"
+        "internal = lambda: {m for m in sys.modules\n"
+        "                    if m.startswith('torch.testing._internal')}\n"
+        "before = internal()\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'): importlib.import_module(m.name)\n"
+        "import torch.distributed as dist\n"
+        "assert not (dist.is_available() and dist.is_initialized())\n"
+        "bad = sorted(internal() - before)\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(PKG_DIR))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
