@@ -355,6 +355,25 @@ needed. Phases (any failure exits non-zero):
               than the dry run needs, its refusal. At most P17_BUDGET_S
               seconds. Phase 8 times ssd_intra and its backward on the
               lowp route at (b)'s shapes (times_lowp).
+ 18. remesh - run inside phase 10, on its yi-6b checkpoint (the final
+              step of the resumed run) before that is removed: the
+              elastic re-mesh restore (train/checkpoint.restore(
+              shardings=) with launch/shardings.NamedSharding). The whole
+              train state restored unsharded on the card, equal to the
+              run's state bit for bit; then with the training specs
+              (param_specs at model_n = 2, zero1_specs for the moments) on
+              a REMESH_MESH CUDA DeviceMesh over the fake process group,
+              standing as each of REMESH_RANKS: every leaf's local shard a
+              DTensor on the card, bit for bit the slice of the unsharded
+              restore that DTensor's own offsets name, the step an int;
+              seconds and bytes a rank printed. Then layers.decode_attention
+              at full-width yi-6b (one layer's random weights, bf16 and
+              f32) over REMESH_DA_SLOTS positions, without the ring and
+              with it past its wrap, against its plain path within DA_TOL /
+              DA_F32_TOL of max |plain|, the caches written bit for bit
+              alike, one decode-attention launch a call; ops.ssd_intra bit
+              for bit equal to ssd_intra_chunk at the mamba2-780m serving
+              shape, one launch a call. At most REMESH_BUDGET_S seconds.
 
 Prints the card's name and power limit, one JSON line per timed shape, a
 ``{"kernels": [...]}`` line (the block-sparse and decode-attention entries
@@ -751,6 +770,14 @@ P17_DP_TOL = 1e-3
 P17_PIPE = (4, 8, 128)
 P17_BUDGET_S = 60
 DRYRUN_TIMEOUT = 900
+# phase 18 (remesh): phase 10's yi-6b checkpoint restored onto a (4, 2)
+# ("data", "model") CUDA DeviceMesh over the fake process group, standing
+# as each of REMESH_RANKS; the decode over a contiguous cache of
+# REMESH_DA_SLOTS positions, without and with the ring (past its wrap)
+REMESH_MESH = ((4, 2), ("data", "model"))
+REMESH_RANKS = (0, 7)
+REMESH_DA_SLOTS = 1024
+REMESH_BUDGET_S = 30
 
 
 def log(*a) -> None:
@@ -3500,7 +3527,7 @@ def train_grads(torch, kern, cfg, batch):
     return out
 
 
-def train_cli(torch, kern, arch, argv, stop, layers, tag):
+def train_cli(torch, kern, arch, argv, stop, layers, tag, ckpt_hook=None):
     """One model through ``repro_torch.launch.train.main(argv)``
     in-process, its depth cut to ``layers`` (if given) by wrapping
     ``registry.get_config``, which the CLI reads:
@@ -3516,8 +3543,10 @@ def train_cli(torch, kern, arch, argv, stop, layers, tag):
     d. one more step profiled (torch.profiler): the busy share and the top
        kernels.
 
-    Checkpoints go to a temporary directory, removed afterwards. Returns
-    the launch counts of the straight run."""
+    Checkpoints go to a temporary directory, removed afterwards;
+    ``ckpt_hook(ckpt_dir, state)``, if given, runs on the resumed run's
+    checkpoints and final state first. Returns the launch counts of the
+    straight run."""
     import shutil
     import signal
     import tempfile
@@ -3617,6 +3646,8 @@ def train_cli(torch, kern, arch, argv, stop, layers, tag):
                              "bit equal to the straight run's")
             del final, after
             final_state = resumed.state
+            if ckpt_hook is not None:
+                ckpt_hook(f"{tmp}/b", final_state)
         else:
             del straight
         log(json.dumps({tag: rec}))
@@ -3635,18 +3666,19 @@ def train(torch, kern, card):
     ``torch.use_deterministic_algorithms(True)``, QAT (--cim) with the
     group lasso, AdamW, f32, on TokenPipeline, for yi-6b at full width
     with depth cut to TRAIN_YI_LAYERS and mamba2-780m at full width with
-    depth cut to TRAIN_MAMBA_LAYERS. Returns the launch counts of the
-    straight runs."""
+    depth cut to TRAIN_MAMBA_LAYERS. Phase 18 (``remesh``) runs on
+    yi-6b's checkpoint. Returns the launch counts of the straight runs."""
     counts = {}
     t_phase = time.perf_counter()
     torch.use_deterministic_algorithms(True)
     try:
-        for arch, argv, stop, layers in (
-                ("yi-6b", TRAIN_YI, TRAIN_YI_STOP, TRAIN_YI_LAYERS),
+        for arch, argv, stop, layers, hook in (
+                ("yi-6b", TRAIN_YI, TRAIN_YI_STOP, TRAIN_YI_LAYERS,
+                 lambda d, st: remesh(torch, kern, card, d, st)),
                 ("mamba2-780m", TRAIN_MAMBA, TRAIN_MAMBA_STOP,
-                 TRAIN_MAMBA_LAYERS)):
+                 TRAIN_MAMBA_LAYERS, None)):
             counts[f"train {arch}"] = train_cli(torch, kern, arch, argv,
-                                                stop, layers, "train")
+                                                stop, layers, "train", hook)
     finally:
         torch.use_deterministic_algorithms(False)
     log(f"[train] phase {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -4321,7 +4353,7 @@ def check_moe_attention(torch, DA, cfgs):
 
 def check_ring_attention(torch, DA, cfg):
     """Phase 2: the hybrid family's ring decode as
-    ``layers.decode_attention_ring`` launches it: zamba2's heads (32 of 64,
+    ``layers.decode_attention(..., ring=True)`` launches it: zamba2's heads (32 of 64,
     MHA) over its window-sized ring of cfg.window slots, the step's K/V
     written at slot pos % window first, the query at min(pos, window - 1),
     no window and no k_new, at positions before, at and past the wrap,
@@ -6262,6 +6294,143 @@ def dryrun_slice(torch, kern, card, dry):
         f"({card})")
     assert secs <= P17_BUDGET_S, secs
     return counts
+
+
+def remesh_restore(torch, ckpt_dir, state):
+    """Phase 18's restores (module docstring): the unsharded one, then one
+    a rank of REMESH_RANKS, each shard held against the unsharded
+    restore."""
+    import torch.distributed as dist
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train.optimizer import tree_map
+    t0 = time.perf_counter()
+    full, manifest = CK.restore(ckpt_dir, state)
+    torch.cuda.synchronize()
+    whole = CK.flatten(full)
+    for (k, got), (_, want) in zip(whole, CK.flatten(state)):
+        assert (got == want if isinstance(want, int)
+                else torch.equal(got, want)), k
+    nbytes = sum(t.numel() * t.element_size() for _, t in whole
+                 if torch.is_tensor(t))
+    log(f"[remesh] unsharded restore of step {manifest['step']}: "
+        f"{len(whole)} leaves, {nbytes} bytes, "
+        f"{time.perf_counter() - t0:.2f} s, equal to the run's state")
+    cfg = registry.get_config("yi-6b")  # the specs read widths only
+    device_type = "cuda" if DEV == "cuda" else "cpu"
+    for rank in REMESH_RANKS:
+        mesh = M.make_fake_mesh(*REMESH_MESH, rank=rank,
+                                device_type=device_type)
+        try:
+            pspecs = SH.param_specs(cfg, SH.mesh_axes(mesh)["model"])
+            ospecs = SH.zero1_specs(pspecs, state["params"], mesh)
+            named = lambda specs: tree_map(
+                lambda sp: SH.NamedSharding(mesh, sp), specs)
+            shardings = {"params": named(pspecs), "step": None,
+                         "opt": {k: named(ospecs) for k in state["opt"]}}
+            t0 = time.perf_counter()
+            got, _ = CK.restore(ckpt_dir, state, shardings=shardings)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            local_bytes = 0
+            for (k, t), (_, want) in zip(CK.flatten(got), whole):
+                if isinstance(want, int):
+                    assert t == want, k
+                    continue
+                local = t.to_local()
+                assert local.device.type == device_type, (k, local.device)
+                shape, offset = compute_local_shape_and_global_offset(
+                    want.shape, mesh, t.placements)
+                cut = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+                assert torch.equal(local, want[cut]), (rank, k)
+                local_bytes += local.numel() * local.element_size()
+            log(f"[remesh] rank {rank} at {tuple(mesh.get_coordinate())} of "
+                f"{REMESH_MESH[0]}: {len(whole)} leaves restored in "
+                f"{secs:.2f} s, {local_bytes} bytes on the card "
+                f"({local_bytes / nbytes:.4f} of the state), every shard bit "
+                "for bit the unsharded restore's slice")
+            del got
+        finally:
+            dist.destroy_process_group()
+
+
+def remesh_decode(torch, DA):
+    """Phase 18: ``layers.decode_attention`` on the card against its plain
+    path (module docstring). Returns the largest |kernel - plain|."""
+    from repro_torch.models import layers as TL
+    from repro_torch.models import registry
+    cfg = registry.get_config("yi-6b")
+    gen = torch.Generator(device=DEV).manual_seed(37)
+    shapes = {"wq": (cfg.d_model, cfg.n_heads * cfg.dh),
+              "wk": (cfg.d_model, cfg.n_kv_heads * cfg.dh),
+              "wv": (cfg.d_model, cfg.n_kv_heads * cfg.dh),
+              "wo": (cfg.n_heads * cfg.dh, cfg.d_model)}
+    worst = 0.0
+    for dt, tol in ((torch.bfloat16, DA_TOL), (torch.float32, DA_F32_TOL)):
+        p = {k: (torch.randn(s, generator=gen, device=DEV)
+                 / math.sqrt(s[0])).to(dt) for k, s in shapes.items()}
+        x1 = torch.randn((N_SLOTS, 1, cfg.d_model), generator=gen,
+                         device=DEV).to(dt)
+        for ring, pos in ((False, REMESH_DA_SLOTS - 1),
+                          (True, REMESH_DA_SLOTS + 300)):
+            k, v = (torch.randn((N_SLOTS, REMESH_DA_SLOTS, cfg.n_kv_heads,
+                                 cfg.dh), generator=gen, device=DEV).to(dt)
+                    for _ in range(2))
+            caches = [(k.clone(), v.clone()) for _ in range(2)]
+            n0 = DA.LAUNCHES
+            got = TL.decode_attention(p, x1, *caches[0], pos, cfg,
+                                      ring=ring)[0]
+            assert DA.LAUNCHES == n0 + 1
+            saved = DA.decode_attention
+            DA.decode_attention = DA.decode_attention_plain
+            try:
+                want = TL.decode_attention(p, x1, *caches[1], pos, cfg,
+                                           ring=ring)[0].float()
+            finally:
+                DA.decode_attention = saved
+            assert all(torch.equal(a, b) for a, b in zip(*caches))
+            err = float((got.float() - want).abs().max())
+            assert err <= tol * max(1.0, float(want.abs().max())), (
+                dt, ring, err)
+            worst = max(worst, err)
+    log(f"[remesh] layers.decode_attention at yi-6b's width over "
+        f"{REMESH_DA_SLOTS} positions (at {REMESH_DA_SLOTS - 1}; as a ring "
+        f"at {REMESH_DA_SLOTS + 300}, past its wrap), bf16 and f32: within "
+        f"DA_TOL / DA_F32_TOL of its plain path, the caches equal, one "
+        f"launch a call; max |kernel - plain| {worst:.3e}")
+    return worst
+
+
+def remesh(torch, kern, card, ckpt_dir, state):
+    """Phase 18 (remesh, module docstring), inside phase 10 on yi-6b's
+    checkpoint and final state; at most REMESH_BUDGET_S seconds."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    _, _, SI, _, DA, _ = kern
+    t_phase = time.perf_counter()
+    remesh_restore(torch, ckpt_dir, state)
+    remesh_decode(torch, DA)
+    mcfg = registry.get_config("mamba2-780m")
+    gen = torch.Generator(device=DEV).manual_seed(41)
+    C, H = MAMBA_BATCH * MAMBA_PROMPT // mcfg.ssm_chunk, mcfg.n_ssm_heads
+    l, N, P = mcfg.ssm_chunk, mcfg.ssm_state, mcfg.d_inner // H
+    a = -torch.rand((C, H, l), generator=gen, device=DEV) * 0.1
+    b, c = (torch.randn((C, l, N), generator=gen, device=DEV) / math.sqrt(N)
+            for _ in range(2))
+    x = torch.randn((C, l, H, P), generator=gen, device=DEV)
+    n0 = SI.LAUNCHES
+    assert torch.equal(ops.ssd_intra(a, b, c, x),
+                       SI.ssd_intra_chunk(a, b, c, x))
+    assert SI.LAUNCHES == n0 + 2
+    log(f"[remesh] ops.ssd_intra at ({C}, {H}, {l}, {N}, {P}) bit for bit "
+        "ssd_intra_chunk's, one launch a call")
+    secs = time.perf_counter() - t_phase
+    log(f"[remesh] phase {secs:.1f} s ({card})")
+    assert secs <= REMESH_BUDGET_S, secs
 
 
 def times_lowp(torch, SI):

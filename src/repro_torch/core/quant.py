@@ -9,7 +9,7 @@ The MARS quantizers here are the plain forms (no straight-through
 estimator); training runs eqs. 5, 7 and 8 on the fake-quant kernel, whose
 autograd Function carries the reference's straight-through gradient
 (``kernels/fake_quant.py``). The DoReFa baseline's quantizers carry their
-own, ``x + (round(x) - x).detach()`` (the reference's ``round_ste``). ``torch.round`` rounds half to even, as
+own, :func:`round_ste`. ``torch.round`` rounds half to even, as
 ``jnp.round`` does, and every step stays in the input's dtype. The BN
 helpers at the end are differentiable, as the reference's are.
 """
@@ -97,6 +97,12 @@ def quantize_weight_symmetric(w_bar: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.round(w_bar * qmax) / (2.0 ** (bits - 1))
 
 
+def weight_int_levels(w_q: torch.Tensor, bits: int) -> torch.Tensor:
+    """The int8 codes the macro stores for an eq. 8 output ``w_q``:
+    ``round(w_q * 2^{b-1})``, half to even."""
+    return torch.round(w_q * (2.0 ** (bits - 1))).to(torch.int8)
+
+
 def mars_weight_quant(w: torch.Tensor, bits: int, group_size: int = 16,
                       gamma: Optional[torch.Tensor] = None,
                       var: Optional[torch.Tensor] = None,
@@ -114,7 +120,7 @@ def mars_weight_quant(w: torch.Tensor, bits: int, group_size: int = 16,
 # ---------------------------------------------------------------------------
 
 
-def _round_ste(x: torch.Tensor) -> torch.Tensor:
+def round_ste(x: torch.Tensor) -> torch.Tensor:
     """Round half to even forward, identity gradient (straight-through)."""
     return x + (torch.round(x) - x).detach()
 
@@ -127,7 +133,7 @@ def dorefa_quantize_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
     t = torch.tanh(w)
     t = t / (2.0 * t.abs().amax() + 1e-12) + 0.5
     levels = 2.0 ** bits - 1.0
-    return 2.0 * (_round_ste(t * levels) / levels) - 1.0
+    return 2.0 * (round_ste(t * levels) / levels) - 1.0
 
 
 def dorefa_quantize_activation(a: torch.Tensor, bits: int) -> torch.Tensor:
@@ -136,7 +142,7 @@ def dorefa_quantize_activation(a: torch.Tensor, bits: int) -> torch.Tensor:
     if bits >= 32:
         return a
     levels = 2.0 ** bits - 1.0
-    return _round_ste(clip(a, 0.0, 1.0) * levels) / levels
+    return round_ste(clip(a, 0.0, 1.0) * levels) / levels
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Kernel-facing helpers: deployment packing, the BSR matmul entry points
-over packed dicts, and the fake-quant, dense int8 matmul, paged
-decode-attention and grouped float product entry points."""
+over packed dicts, and the fake-quant, SSD intra-chunk, dense int8
+matmul, paged decode-attention and grouped float product entry points."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,6 +12,7 @@ from ..core.mapping import pack_bsr
 from . import cim_bsr_matmul, fake_quant as _fq, quant_matmul as _qm
 from . import decode_attention as _da
 from . import grouped_matmul as _gm
+from . import ssd_intra as _si
 from .decode_attention import row_sum  # noqa: F401  (the norms' row sums)
 
 
@@ -76,6 +77,14 @@ def fake_quant(x: torch.Tensor, bits: int, signed: bool = False,
     if bits >= 32:
         return x if out_dtype is None else x.to(out_dtype)
     return _fq.fake_quant(x, bits, signed, out_dtype, ste)
+
+
+def ssd_intra(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              x: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+    """Mamba2's SSD intra-chunk block on its kernel (the plain version for
+    CPU tensors), differentiable: ``kernels.ssd_intra.ssd_intra_chunk``."""
+    return _si.ssd_intra_chunk(a, b, c, x, out_dtype)
 
 
 def quant_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor

@@ -47,18 +47,16 @@ first, as torch's ``CommDebugMode`` does):
 
 ``compile_s`` is the seconds of the full-depth traced step. The kernel
 wrappers take their plain versions on the meta device, so the program is
-the port's own model code, shape only. Where DTensor has no rule for a
-layout GSPMD handles, the dry run adds one (``dryrun_rules``: a depthwise
-conv sharded by channel, a view that splits heads out of a dim sharded
-over more devices than heads, a gather over a sharded dim reduced at
-once); the model code holds no DTensor branch.
-
-``--opt`` records of the dense and vlm families (``seq_shard_residual``)
-carry ``"comparable_to_baseline": false``: the model keeps the reference's
-one constraint (the residual stream sharded by sequence between layers),
-and DTensor, given the sequence-sharded stream at the head, computes the
-head's products with the whole vocabulary on every model device, which
-GSPMD need not do. Their blocks cost what the baseline's do.
+the port's own model code, shape only. Where DTensor lays out an op
+otherwise than GSPMD would, the dry run adds a rule (``dryrun_rules``): a
+depthwise conv sharded by channel, a view that splits heads out of a dim
+sharded over more devices than heads, a gather over a sharded dim reduced
+at once, an attention einsum's batched product sharded by heads, and
+Megatron-SP for ``--opt``'s ``seq_shard_residual`` stream (the sequence
+gathered before a column-parallel product, the head's included, which so
+computes vocabulary-sharded, and the gradient reduce-scattered back; K and
+V moved from the sequence to the heads for the attention einsum). The
+model code holds no DTensor branch.
 
 Needs torch 2.13 or later (``REQUIRED_TORCH``): older DTensor refuses to
 flatten a sharded dim (no strided shard), so most cells would fail on
@@ -121,6 +119,7 @@ _INTERNALS = (
      "_custom_op_handlers"),
     ("torch.distributed.tensor._utils",
      "compute_local_shape_and_global_offset"),
+    ("torch.distributed.tensor.placement_types", "_StridedShard"),
 )
 
 
@@ -483,13 +482,18 @@ def _local(t, mesh, placements):
 
 
 def _wrap(local, mesh, placements, shape):
+    """``local`` as the DTensor of global ``shape``, contiguous (its
+    strides computed, not taken from a tensor: an allocation here would
+    count as the program's)."""
     from torch.distributed.tensor import DTensor
     if local is None:
         return None
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.insert(0, n)
+        n *= size
     return DTensor.from_local(local, mesh, placements, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta"
-                                                 ).stride())
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 def _is_depthwise(x, groups) -> bool:
@@ -590,20 +594,180 @@ def reduce_gathered(real, op_call, args, kwargs):
     return out
 
 
+def _strided(p) -> bool:
+    """A strided shard: a dim sharded after it was flattened with a dim
+    before it (the sequence in ``(B*S, D)`` rows, heads in ``(B*H, ...)``
+    batches)."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return isinstance(p, _StridedShard)
+
+
+def bmm_by_heads(real, op_call, args, kwargs):
+    """``aten.bmm`` with its batch dim under a strided shard (an attention
+    einsum's heads, flattened into the batch, sharded) on a mesh dim where
+    the other operand is replicated or sharded alike: the replicated
+    operand is cut the same way (a local slice, no collective) and each
+    device multiplies its own heads, as GSPMD shards the einsum by heads.
+    DTensor's own rule has no strided shard and gathers the batch, which
+    replicates the attention. Other layouts go to ``real``."""
+    from torch.distributed.tensor import DTensor
+    a, b = args
+    if kwargs or not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+        return real(op_call, args, kwargs)
+    pa, pb = list(a.placements), list(b.placements)
+    if not any(map(_strided, pa + pb)):
+        return real(op_call, args, kwargs)
+    batch = lambda p: getattr(p, "dim", None) == 0 and not p.is_partial()
+    for i, (p, q) in enumerate(zip(a.placements, b.placements)):
+        if batch(p) and (q == p or q.is_replicate()):
+            pb[i] = p
+        elif batch(q) and p.is_replicate():
+            pa[i] = q
+        elif not (p.is_replicate() and q.is_replicate()):
+            return real(op_call, args, kwargs)
+    mesh = a.device_mesh
+    y = op_call(_local(a, mesh, pa), _local(b, mesh, pb))
+    return _wrap(y, mesh, pa, (a.shape[0], a.shape[1], b.shape[2]))
+
+
+def _column_parallel(q) -> bool:
+    return q.is_shard() and q.dim == 1
+
+
+def gather_sequence_rows(real, op_call, args, kwargs):
+    """``aten.mm`` where, on a mesh dim, one operand's rows or
+    contraction is a flattened sequence under a strided shard and the
+    other is sharded there by a dim the product keeps (a weight's columns,
+    an activation's features): the sequence is gathered over that mesh
+    dim first, as Megatron-SP gathers it before a column-parallel product
+    and, in the backward, gathers the gradient that a row-parallel
+    product's reduce-scatter left sharded by the sequence. The forward's
+    own products gather above autograd (:class:`SequenceParallel`); these
+    are the backward's, which autograd runs below it. DTensor, left alone,
+    shards the contraction and all-reduces a result replicated on every
+    device, or gathers the larger operand."""
+    from torch.distributed.tensor import DTensor, Replicate
+    a, b = args
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+        return real(op_call, args, kwargs)
+    pa, pb = list(a.placements), list(b.placements)
+    for i, (p, q) in enumerate(zip(a.placements, b.placements)):
+        if _strided(p) and _column_parallel(q):
+            pa[i] = Replicate()
+        elif _strided(q) and q.dim == 0 and p.is_shard() and p.dim == 0:
+            pb[i] = Replicate()
+    if pa != list(a.placements):
+        a = a.redistribute(a.device_mesh, pa)
+    if pb != list(b.placements):
+        b = b.redistribute(b.device_mesh, pb)
+    return real(op_call, (a, b), kwargs)
+
+
 def _rules() -> dict:
     aten = torch.ops.aten
-    return {aten.convolution.default: depthwise_conv,
+    return {aten.mm.default: gather_sequence_rows,
+            aten.bmm.default: bmm_by_heads,
+            aten.convolution.default: depthwise_conv,
             aten.convolution_backward.default: depthwise_conv_backward,
             aten.view.default: reshard_on_refusal,
             aten._unsafe_view.default: reshard_on_refusal,
             aten.gather.default: reduce_gathered}
 
 
+def _sequence_gathered(x, w):
+    """The placements ``x`` takes before ``x @ w`` under Megatron-SP, or
+    None to keep its own: the sequence gathered (a dim between the batch
+    and the features of a 3-D or wider ``x``) on each mesh dim that shards
+    the 2-D weight ``w`` by columns."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)
+            and w.ndim == 2 and x.ndim >= 3):
+        return None
+    px = [Replicate() if _column_parallel(q)
+          and 0 < getattr(p, "dim", -1) < x.ndim - 1 else p
+          for p, q in zip(x.placements, w.placements)]
+    return px if px != list(x.placements) else None
+
+
+def _einsum_by_shared_letters(equation: str, operands):
+    """The operands of ``torch.einsum(equation, *operands)`` resharded so
+    that, on each mesh dim where one of them is sharded by a letter every
+    operand has (a batch letter: an attention einsum's heads), the others
+    sharded there by another letter (the sequence of K or V) take that
+    letter too; the einsum then needs no collective. None when nothing
+    moves."""
+    from torch.distributed.tensor import DTensor, Shard
+    ins = equation.replace(" ", "").split("->")[0].split(",")
+    if (len(ins) != len(operands) or "." in equation
+            or not all(isinstance(t, DTensor) for t in operands)):
+        return None
+    shared = set.intersection(*map(set, ins))
+    new = list(operands)
+    for m in range(operands[0].device_mesh.ndim):
+        sharded = [(i, spec[t.placements[m].dim])
+                   for i, (spec, t) in enumerate(zip(ins, new))
+                   if t.placements[m].is_shard()]
+        lead = next((c for _, c in sharded if c in shared), None)
+        for i, c in sharded:
+            if lead is not None and c != lead:
+                placements = list(new[i].placements)
+                placements[m] = Shard(ins[i].index(lead))
+                new[i] = new[i].redistribute(new[i].device_mesh, placements)
+    return new if any(a is not b for a, b in zip(new, operands)) else None
+
+
+class SequenceParallel(torch.overrides.TorchFunctionMode):
+    """Megatron-SP's layout, as GSPMD lays out the reference's
+    ``seq_shard_residual`` stream, in the rules that act above autograd (a
+    torch function mode; a handler in DTensor's dispatcher runs below it):
+
+    * a product ``x @ w`` of the sequence-sharded stream with a
+      column-parallel weight (a block's wq, w_gate and w_up, the head
+      sharded on the vocabulary) takes the stream gathered over the
+      weight's mesh dims, once a tensor (the copy lives as long as its
+      source), and keeps the weight's columns sharded. Autograd records
+      the gather, so its gradient is reduce-scattered back to the
+      sequence. Left alone, DTensor shards the product's contraction
+      instead and computes the head with the whole vocabulary on every
+      device;
+    * an einsum whose operands are sharded on one mesh dim by different
+      letters, one of them a letter all share, runs on that letter
+      (:func:`_einsum_by_shared_letters`): the attention's K and V, made
+      from the sequence-sharded stream by weights that replication keeps
+      whole (GQA's K/V), move from the sequence to the heads, and their
+      gradients back, so the K/V products stay sharded by the sequence in
+      the backward too."""
+
+    _MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+
+    def __init__(self):
+        super().__init__()
+        self.gathered = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self._MATMULS and len(args) == 2:
+            x, w = args
+            px = _sequence_gathered(x, w)
+            if px is not None:
+                key = (id(x), tuple(px))
+                if key not in self.gathered:  # dropped when x dies
+                    self.gathered[key] = x.redistribute(x.device_mesh, px)
+                    weakref.finalize(x, self.gathered.pop, key, None)
+                args = (self.gathered[key], w)
+        elif func is torch.einsum and isinstance(args[0], str):
+            moved = _einsum_by_shared_letters(args[0], args[1:])
+            if moved is not None:
+                args = (args[0], *moved)
+        return func(*args, **kwargs)
+
+
 @contextlib.contextmanager
 def dryrun_rules():
-    """The rules above installed in DTensor's dispatcher for the
-    duration (its custom op handlers; torch's own handler, or its default
-    propagation, is what a rule calls ``real``)."""
+    """The rules above installed for the duration: the handlers in
+    DTensor's dispatcher (its custom op handlers; torch's own handler, or
+    its default propagation, is what a rule calls ``real``) and
+    :class:`SequenceParallel`."""
     from torch.distributed.tensor import DTensor
     handlers = DTensor._op_dispatcher._custom_op_handlers
     ops = _rules()
@@ -623,7 +787,8 @@ def dryrun_rules():
     for op, rule in ops.items():
         handlers[op] = functools.partial(rule, real_of(op))
     try:
-        yield
+        with SequenceParallel():
+            yield
     finally:
         for op, h in saved.items():
             if h is None:
@@ -799,7 +964,6 @@ def run_cell(arch: str, shape_name: str, mesh, cim=False,
         "arch": arch, "shape": shape_name,
         "mesh": "x".join(str(v) for v in sizes.values()),
         "cim": cim, "opt": opt,
-        "comparable_to_baseline": not cfg.seq_shard_residual,
         "compile_s": round(time.time() - t0, 1),
         "argument_bytes_per_dev": int(full["argument_bytes_per_dev"]),
         "output_bytes_per_dev": int(full["output_bytes_per_dev"]),

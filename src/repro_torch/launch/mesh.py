@@ -3,8 +3,9 @@ mesh.
 
 :func:`make_production_mesh` is the reference's production mesh, (16, 16)
 ``("data", "model")`` or (2, 16, 16) ``("pod", "data", "model")``, as a
-``DeviceMesh`` on torch's fake process group: 256 or 512 ranks of which
-this process is rank 0, device type ``cpu``, no collective ever run. It is
+``DeviceMesh`` on torch's fake process group (:func:`make_fake_mesh`):
+256 or 512 ranks of which this process is rank 0, device type ``cpu``, no
+collective ever run. It is
 torch's counterpart of the reference's fake host devices; the dry run
 (``launch/dryrun.py``) traces its steps over it on the meta device. The
 function creates the process group; the caller destroys it
@@ -37,10 +38,13 @@ def make_production_mesh(*, multi_pod: bool = False):
     return make_fake_mesh(*PRODUCTION_SHAPES[bool(multi_pod)])
 
 
-def make_fake_mesh(shape: Sequence[int], names: Sequence[str]):
+def make_fake_mesh(shape: Sequence[int], names: Sequence[str],
+                   rank: int = 0, device_type: str = "cpu"):
     """A ``DeviceMesh`` of ``shape`` with axes ``names`` on a fresh fake
-    process group of ``prod(shape)`` ranks, this process rank 0 (the
-    production meshes, or a small one for tests)."""
+    process group of ``prod(shape)`` ranks, this process rank ``rank``
+    (the production meshes, or a small one for tests and for standing as
+    any rank of a mesh, as the elastic restore's checks do), its shards on
+    ``device_type``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -52,9 +56,11 @@ def make_fake_mesh(shape: Sequence[int], names: Sequence[str]):
     if dist.is_initialized():
         raise RuntimeError("a process group exists already; destroy it "
                            "before making a production mesh")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in a mesh of {world} ranks")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
-    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,9 +19,10 @@ that shard that dim together. They read only a mesh's axis names and
 sizes (:func:`mesh_axes`), so a ``DeviceMesh``, a :class:`MacroMesh` or
 any object with the reference's ``shape``/``axis_names`` serves, and no
 device is needed. :func:`to_placements` turns a spec into DTensor
-placements over a ``DeviceMesh``; :func:`constrain` is the reference's
-``with_sharding_constraint``: a redistribute for a DTensor, nothing for a
-plain tensor.
+placements over a ``DeviceMesh`` and :class:`NamedSharding` pairs a spec
+with its mesh (the elastic restore's sharding); :func:`constrain` is the
+reference's ``with_sharding_constraint``: a redistribute for a DTensor,
+nothing for a plain tensor.
 """
 from __future__ import annotations
 
@@ -403,17 +404,47 @@ def zero1_specs(pspecs, params_shape, mesh):
 
 def to_placements(spec: Spec, mesh) -> tuple:
     """DTensor placements of ``spec`` over the ``DeviceMesh`` ``mesh``:
-    ``Shard(d)`` on each mesh dim whose axis names tensor dim d (a tuple
-    entry shards d over its axes, in mesh order), ``Replicate()`` on the
-    others."""
+    ``Shard(d)`` on each mesh dim whose axis names tensor dim d,
+    ``Replicate()`` on the others. A tuple entry shards d over its axes,
+    the first the major one, as JAX splits it; DTensor splits a dim over
+    several mesh dims in mesh order, so the entry must list its axes in
+    mesh order (the reference's specs do), and any other order, or an
+    axis named twice, raises ValueError."""
     from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
     owner: Dict[str, int] = {}
     for d, entry in enumerate(spec):
-        for a in (entry if isinstance(entry, tuple) else (entry,)):
-            if a is not None:
-                owner[a] = d
+        axes = [a for a in (entry if isinstance(entry, tuple) else (entry,))
+                if a is not None]
+        if any(a in owner for a in axes) or len(set(axes)) < len(axes):
+            raise ValueError(f"spec {spec} names an axis twice")
+        if [names.index(a) for a in axes] != sorted(names.index(a)
+                                                    for a in axes):
+            raise ValueError(
+                f"spec entry {entry} lists its axes out of mesh order "
+                f"{names}: DTensor would split the dim in mesh order, JAX "
+                "in the entry's")
+        owner.update((a, d) for a in axes)
     return tuple(Shard(owner[a]) if a in owner else Replicate()
-                 for a in mesh.mesh_dim_names)
+                 for a in names)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """The port's counterpart of ``jax.sharding.NamedSharding``: a
+    ``DeviceMesh`` and a spec in the reference's tuple form (one-axis
+    tuple entries as their names, as a ``PartitionSpec`` normalizes
+    them). ``train.checkpoint.restore(shardings=)`` places each leaf by
+    one."""
+
+    mesh: object
+    spec: Spec
+
+    def __post_init__(self):
+        object.__setattr__(self, "spec", _spec(*self.spec))
+
+    def placements(self) -> tuple:
+        return to_placements(self.spec, self.mesh)
 
 
 def constrain(t: torch.Tensor, spec: Spec) -> torch.Tensor:

@@ -139,6 +139,10 @@ class ShapeConfig:
     global_batch: int
     kind: str  # train | prefill | decode
 
+    @property
+    def is_serving(self) -> bool:
+        return self.kind in ("prefill", "decode")
+
 
 SHAPES = {
     "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),

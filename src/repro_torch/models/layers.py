@@ -12,8 +12,9 @@ products and a float head on the paged pass run on the grouped-product
 kernel (``kernels/grouped_matmul.py``) for the same reason: its launch plan
 and every sum order in it follow the types, K and N, never the row count;
 prefill attention, norms and RoPE stay plain torch, as the reference leaves
-them to XLA. The hybrid family's ring-buffer decode
-(:func:`decode_attention_ring`) runs on the decode-attention kernel too;
+them to XLA. The one-token decode over a contiguous cache
+(:func:`decode_attention`, the hybrid family's ring buffer included) runs
+on the decode-attention kernel too;
 the encoder's bidirectional and the decoder's cross attention, LayerNorm
 and GELU are plain torch, as the reference writes them in jnp.
 Layouts follow the reference: (B, S, H, dh) activations and caches.
@@ -277,36 +278,38 @@ def _narrow_to(a: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return a if torch.promote_types(a.dtype, dt) == dt else a.to(dt)
 
 
-def decode_attention_ring(p: dict, x1: torch.Tensor, kcache: torch.Tensor,
-                          vcache: torch.Tensor, pos: int, cfg,
-                          use_rope: bool = True) -> torch.Tensor:
-    """One-token decode over a contiguous cache (B, Smax, KV, dh) kept as a
-    ring: the token at absolute position ``pos`` writes its K/V into slot
-    ``pos % Smax`` in place and attends every valid slot, the first
-    ``min(pos + 1, Smax)`` (the reference's ``decode_attention(...,
-    ring=True)``). With ``Smax`` the window, that is a sliding window of
-    ``Smax`` keys; with ``Smax`` past every position, plain causal decode.
-    RoPE rotates each key at its absolute position before it is stored,
-    and attention does not depend on the order of its keys, so the slots
-    need no order. The attention runs on the decode-attention kernel with
-    the query at position ``min(pos, Smax - 1)`` and no window: its mask
-    ``slot <= min(pos, Smax - 1)`` is exactly ``slot < min(pos + 1,
-    Smax)``. Returns y (B, 1, D)."""
+def decode_attention(p: dict, x1: torch.Tensor, kcache: torch.Tensor,
+                     vcache: torch.Tensor, pos: int, cfg, window: int = 0,
+                     use_rope: bool = True, ring: bool = False):
+    """One-token decode over a contiguous cache (B, Smax, KV, dh), the
+    reference's ``decode_attention``: the token at absolute position
+    ``pos`` writes its K/V into slot ``pos`` in place and attends the
+    slots up to ``pos``, only the last ``window`` of them when ``window >
+    0``. With ``ring`` the cache is a ring: the token writes slot ``pos %
+    Smax`` and attends every valid slot, the first ``min(pos + 1, Smax)``
+    (with ``Smax`` the window, a sliding window of ``Smax`` keys). RoPE
+    rotates each key at its absolute position before it is stored, and
+    attention does not depend on the order of its keys, so a ring's slots
+    need no order: the kernel's query at ``min(pos, Smax - 1)`` with no
+    window masks ``slot <= min(pos, Smax - 1)``, exactly the valid slots.
+    The attention runs on the decode-attention kernel (its plain version
+    for CPU tensors). Returns (y (B, 1, D), kcache, vcache), the caches
+    the ones given, written in place."""
     b = x1.shape[0]
     smax = kcache.shape[1]
     q, k, v = qkv_project(p, x1, cfg, cfg.cim)
     if use_rope:
         pp = torch.full((1, 1), pos, dtype=torch.long, device=x1.device)
         q, k = rope(q, pp, cfg.rope_theta), rope(k, pp, cfg.rope_theta)
-    slot = pos % smax
+    slot = pos % smax if ring else pos
     kcache[:, slot] = k[:, 0].to(kcache.dtype)
     vcache[:, slot] = v[:, 0].to(vcache.dtype)
-    last = torch.full((b,), min(pos, smax - 1), dtype=torch.long,
-                      device=x1.device)
-    o = ops.decode_attention(q, _narrow_to(kcache, x1.dtype),
-                             _narrow_to(vcache, x1.dtype), last, 0,
-                             cfg.n_heads)
-    return cim_matmul(o.reshape(b, 1, -1), p["wo"], cfg.cim)
+    last, window = (min(pos, smax - 1), 0) if ring else (pos, window)
+    o = ops.decode_attention(
+        q, _narrow_to(kcache, x1.dtype), _narrow_to(vcache, x1.dtype),
+        torch.full((b,), last, dtype=torch.long, device=x1.device), window,
+        cfg.n_heads)
+    return cim_matmul(o.reshape(b, 1, -1), p["wo"], cfg.cim), kcache, vcache
 
 
 def decode_attention_multi(p: dict, xt: torch.Tensor, kview: torch.Tensor,

@@ -6,7 +6,7 @@ import importlib
 from typing import Callable
 
 from . import encdec, transformer
-from .config import ModelConfig
+from .config import SHAPES, ModelConfig, ShapeConfig
 
 # the language models of the zoo, in the reference's order (the CNNs have
 # configs too, but no cells)
@@ -65,6 +65,10 @@ def get_config(arch: str, **overrides) -> ModelConfig:
 def get_smoke_config(arch: str, **overrides) -> ModelConfig:
     cfg = _module(arch).SMOKE
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def shape_config(name: str) -> ShapeConfig:
+    return SHAPES[name]
 
 
 def supported_cells(arch: str):

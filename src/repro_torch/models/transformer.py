@@ -481,7 +481,8 @@ def _hybrid_decode(params: dict, cache: dict, x: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """The hybrid family's decode step: the mamba blocks' states in place,
     the shared block's attention over its KV ring
-    (``layers.decode_attention_ring``, on the decode-attention kernel).
+    (``layers.decode_attention(..., ring=True)``, on the decode-attention
+    kernel).
     The ring must not outgrow the window (:func:`ring_cache`)."""
     n_super, n_tail = _hybrid_split(cfg)
     pos = cache["pos"]
@@ -496,9 +497,9 @@ def _hybrid_decode(params: dict, cache: dict, x: torch.Tensor,
             x = _mamba_step(_body_layer(params, s, j), x,
                             cache["conv"][s, j], cache["ssm"][s, j], cfg)
         g = params["attn_gate"][s].to(x.dtype)
-        x = x + g * L.decode_attention_ring(
+        x = x + g * L.decode_attention(
             shared, L.rmsnorm(x, shared["ln1"]), cache["k"][s],
-            cache["v"][s], pos, cfg)
+            cache["v"][s], pos, cfg, ring=True)[0]
         x = x + g * L.gated_mlp(shared, L.rmsnorm(x, shared["ln2"]),
                                 cfg.cim)
     for i in range(n_tail):

@@ -34,6 +34,15 @@ checkpoints (:func:`_gc`); :func:`restore` reads them back into the
 structure, dtypes and devices of a template. A checkpoint written by
 either package restores in the other.
 
+The elastic re-mesh (the reference's ``restore(shardings=)``): a DTensor
+leaf is saved as its full array (``full_tensor()``, a collective every
+rank joins; with a process group up, rank 0 alone publishes and the
+others wait at a barrier), so a checkpoint holds no layout; ``restore``
+given a tree of ``launch.shardings.NamedSharding`` reads each sharded
+leaf whole and places this rank's shard of it (JAX's even split, at the
+rank's mesh coordinate) on the mesh's device as a DTensor, with no
+collective, on any mesh shape.
+
 Both halves write ``np.savez``'s file through :func:`_write_npz` and read
 it through :func:`_read_npz`, each member's CRC-32 computed on a pool of
 threads; a member read back is held to the size and CRC-32 that the zip
@@ -55,7 +64,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, is_dtensor, resolve_device
 
 _SERVING_FIELDS = ("embed", "final_ln", "layers", "head", "mm_proj",
                    "head_t")
@@ -316,19 +325,43 @@ def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
 def _leaf_array(leaf: Any) -> np.ndarray:
     if isinstance(leaf, int):  # the step: the reference's is int32
         return np.asarray(leaf, np.int32)
+    if is_dtensor(leaf):  # its full array: every rank joins the gather
+        leaf = leaf.full_tensor()
     return _to_numpy(leaf)[0]
+
+
+def _rank() -> Optional[int]:
+    """This process's rank when a process group is up, else None."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return None
 
 
 def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
          keep: int = 3) -> str:
     """Atomic template-driven save of ``tree`` (nested dicts of tensors,
-    arrays and Python ints) at ``step``, then keep the latest ``keep``
-    checkpoints. Returns the step directory."""
-    arrays = {k: _leaf_array(v) for k, v in flatten(tree)}
-    final = _publish(ckpt_dir, step, arrays,
+    DTensors, arrays and Python ints) at ``step``, then keep the latest
+    ``keep`` checkpoints. A DTensor leaf is written as its full array;
+    with a process group up every rank calls this, rank 0 publishes and
+    the others wait for it at a barrier. Returns the step directory."""
+    rank = _rank()
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if rank:  # only the gathers, which every rank joins; rank 0 writes
+        for _, v in flatten(tree):
+            if is_dtensor(v):
+                v.full_tensor()
+    try:
+        if not rank:
+            arrays = {k: _leaf_array(v) for k, v in flatten(tree)}
+            _publish(ckpt_dir, step, arrays,
                      {"step": int(step), "extra": extra or {},
                       "n_arrays": len(arrays)})
-    _gc(ckpt_dir, keep)
+            _gc(ckpt_dir, keep)
+    finally:
+        if rank is not None:  # reached by rank 0 even when it raises
+            import torch.distributed as dist
+            dist.barrier()
     return final
 
 
@@ -339,18 +372,86 @@ def _gc(ckpt_dir: str, keep: int) -> None:
         shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
 
 
-def _restore_leaf(arr: np.ndarray, like: Any) -> Any:
-    """``arr`` in the type, dtype and device of the template leaf."""
+def _as_tensor(arr: np.ndarray, like: torch.Tensor,
+               device: torch.device) -> torch.Tensor:
+    """``arr`` as a tensor of the template leaf's dtype on ``device``."""
+    if like.dtype == torch.bfloat16 and arr.dtype.kind == "V":
+        return _leaf_tensor(arr, _BF16, device)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device, like.dtype)
+
+
+def _restore_leaf(arr: np.ndarray, like: Any, sharding: Any = None) -> Any:
+    """``arr`` in the type, dtype and device of the template leaf, or,
+    with a ``sharding``, this rank's shard of it as a DTensor."""
+    if sharding is not None:
+        return _sharded_leaf(arr, like, sharding)
     if torch.is_tensor(like):
-        if like.dtype == torch.bfloat16 and arr.dtype.kind == "V":
-            t = _leaf_tensor(arr, _BF16, like.device)
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(arr)).to(like.device,
-                                                                like.dtype)
+        t = _as_tensor(arr, like, like.device)
         return t.requires_grad_() if like.requires_grad else t
     if isinstance(like, int):
         return int(arr)
     return np.asarray(arr).astype(np.asarray(like).dtype)
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device of this rank's shards on ``mesh``: the CPU, or the
+    current card (which ``DeviceMesh`` sets from the local rank); a CUDA
+    mesh never falls back to the CPU."""
+    if mesh.device_type == "cpu":
+        return torch.device("cpu")
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    raise ValueError(f"no shard placement on a {mesh.device_type} mesh")
+
+
+def _shard_index(shape, sharding) -> Tuple[slice, ...]:
+    """This rank's block of an array of ``shape`` under ``sharding`` (a
+    ``launch.shardings.NamedSharding``), as JAX splits it: each dim in
+    equal blocks over the axes its spec entry names, the first the major
+    one, the block at the rank's mesh coordinate. A dim its axes do not
+    divide raises ValueError, as ``jax.device_put`` does."""
+    mesh, spec = sharding.mesh, sharding.spec
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than the array's "
+                         f"{len(shape)} dims")
+    names = tuple(mesh.mesh_dim_names)
+    sizes, coord = tuple(mesh.shape), mesh.get_coordinate()
+    index = []
+    for d, n in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        parts, block = 1, 0
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None:
+                i = names.index(a)
+                parts, block = parts * sizes[i], block * sizes[i] + coord[i]
+        if n % parts:
+            raise ValueError(
+                f"spec {spec} splits dim {d} of shape {tuple(shape)} into "
+                f"{parts} parts, which do not divide {n}")
+        index.append(slice(block * (n // parts), (block + 1) * (n // parts)))
+    return tuple(index)
+
+
+def _sharded_leaf(arr: np.ndarray, like: Any, sharding) -> Any:
+    """This rank's shard of the whole leaf ``arr`` (cast to the template
+    leaf's dtype) on the mesh's device, as a DTensor of the sharding's
+    placements: a local cut, no collective."""
+    from torch.distributed.tensor import DTensor
+    if not torch.is_tensor(like):
+        if isinstance(like, int):
+            raise ValueError("a Python int leaf (the step) takes no "
+                             "sharding")
+        like = torch.from_numpy(np.empty(0, np.asarray(like).dtype))
+    placements = sharding.placements()
+    full = _as_tensor(arr, like, torch.device("cpu"))
+    piece = full[_shard_index(full.shape, sharding)]
+    # a copy of its own, contiguous: a view would keep the whole leaf alive
+    local = torch.empty(piece.shape, dtype=piece.dtype,
+                        device=_mesh_device(sharding.mesh)).copy_(piece)
+    out = DTensor.from_local(local, sharding.mesh, placements,
+                             run_check=False, shape=full.shape,
+                             stride=full.stride())
+    return out.requires_grad_() if like.requires_grad else out
 
 
 def _unflatten(template: Any, values: Dict[str, Any], prefix: str = ""
@@ -415,12 +516,15 @@ def _read_npz(path: str, names: List[str]) -> List[np.ndarray]:
                 lambda n: _read_member(zf, path, infos[n + ".npy"]), names))
 
 
-def restore(ckpt_dir: str, template: Any, step: Optional[int] = None
-            ) -> Tuple[Any, dict]:
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
+            shardings: Any = None) -> Tuple[Any, dict]:
     """Restore the latest checkpoint (or ``step``) into the structure of
     ``template``: each leaf in the template leaf's dtype and on its device
-    (a tensor that requires a gradient comes back requiring one). Returns
-    (tree, manifest)."""
+    (a tensor that requires a gradient comes back requiring one). With
+    ``shardings``, a tree of ``launch.shardings.NamedSharding`` (or None)
+    matching ``template``, a leaf with a sharding comes back as this
+    rank's shard, a DTensor on the sharding's mesh (the elastic re-mesh,
+    module docstring). Returns (tree, manifest)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -430,7 +534,8 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None
         manifest = json.load(f)
     pairs = flatten(template)
     arrays = _read_npz(os.path.join(d, "arrays.npz"), [k for k, _ in pairs])
-    values = {k: _restore_leaf(arr, leaf)
+    shard_of = dict(flatten(shardings)) if shardings is not None else {}
+    values = {k: _restore_leaf(arr, leaf, shard_of.get(k))
               for (k, leaf), arr in zip(pairs, arrays)}
     return _unflatten(template, values), manifest
 

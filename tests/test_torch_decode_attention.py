@@ -585,7 +585,8 @@ def test_kernel_matches_plain_on_gpu(dtype, kv_dtype):
 
 @pytest.mark.cuda
 def test_ring_mapping_on_the_kernel_matches_plain_on_gpu():
-    """The hybrid family's ring decode (``layers.decode_attention_ring``:
+    """The hybrid family's ring decode (``layers.decode_attention(...,
+    ring=True)``:
     the step's K/V written at slot pos % Smax first, then one launch with
     the query at min(pos, Smax - 1), no window, no k_new) on the card
     against the same function over the plain version, before, at and past
@@ -611,12 +612,14 @@ def test_ring_mapping_on_the_kernel_matches_plain_on_gpu():
             x1, kc, vc = x1.cuda(), kc.cuda(), vc.cuda()
             caches = [(kc.clone(), vc.clone()) for _ in range(2)]
             n0 = DA.LAUNCHES
-            got = TL.decode_attention_ring(p, x1, *caches[0], pos, cfg)
+            got = TL.decode_attention(p, x1, *caches[0], pos, cfg,
+                                      ring=True)[0]
             assert DA.LAUNCHES == n0 + 1
             saved = DA.decode_attention
             DA.decode_attention = DA.decode_attention_plain
             try:
-                want = TL.decode_attention_ring(p, x1, *caches[1], pos, cfg)
+                want = TL.decode_attention(p, x1, *caches[1], pos, cfg,
+                                           ring=True)[0]
             finally:
                 DA.decode_attention = saved
             assert torch.equal(caches[0][0], caches[1][0])

@@ -8,9 +8,12 @@ is process-global: a smoke cell of each family on a (2, 2) fake mesh (its
 batch and sequence cut; PASS, or a FAIL that names an op), the per-device
 FLOPs of the dense smoke train step against the unsharded count divided by
 the chips, the collective bytes of a hand-built two-collective program
-(exact), and the CLI on smoke configs over a (2, 2) fake
-mesh with a failing cell in the sweep. Nothing here touches a card.
+(exact), the --opt train cells of yi-6b and llava-next-34b against the
+same cells with ``seq_shard_residual`` off (at smoke size, and yi-6b at
+16x16 on the production mesh), and the CLI on smoke configs over a (2, 2)
+fake mesh with a failing cell in the sweep. Nothing here touches a card.
 """
+import dataclasses
 import json
 import math
 import os
@@ -66,11 +69,21 @@ try:
 except D.CellFailed as e:
     out["mamba2 train"] = ["FAIL", e.op]
 
-# an --opt cell of the dense family (the Megatron-SP constraint)
-out["opt_comparable"] = D.run_cell(
+# --opt train cells (the Megatron-SP constraint) against the same cells
+# with seq_shard_residual off: local FLOPs and collective bytes
+def opt_bar(arch, cfg, shape, mesh, depth_terms=False):
+    row = []
+    on = D.cell_config(arch, opt=True, cfg=cfg)
+    for c in (on, dataclasses.replace(on, seq_shard_residual=False)):
+        r = (D.cost_terms if depth_terms else D.measure)(c, shape, mesh, True)
+        row.append([r["flops"], r["coll"]])
+    return row
+out["opt_bar"] = {f"{arch} 2x2": opt_bar(arch, registry.get_smoke_config(
+    arch), cut("train_4k"), mesh) for arch in ("yi-6b", "llava-next-34b")}
+out["opt_keys"] = [sorted(D.run_cell(
     "yi-6b", "train_4k", mesh, cfg=registry.get_smoke_config("yi-6b"),
-    shape=cut("train_4k"), with_roofline=False,
-    opt=True)["comparable_to_baseline"]
+    shape=cut("train_4k"), with_roofline=False, opt=o)) for o in (True,
+                                                                  False)]
 
 # the rules on values: rank 0's shards of real CPU tensors (no
 # collective runs: the layouts given need none)
@@ -140,6 +153,13 @@ with counter:
 out["coll"] = [counter.coll, counter.coll_counts]
 dist.destroy_process_group()
 
+# the --opt bar at 16x16: full-width yi-6b, its depth extrapolated from one
+# and two layers (the sweep's cost terms)
+mesh = M.make_production_mesh()
+out["opt_bar"]["yi-6b 16x16"] = opt_bar(
+    "yi-6b", registry.get_config("yi-6b"), SHAPES["train_4k"], mesh, True)
+dist.destroy_process_group()
+
 # the CLI over fake meshes, smoke configs, a failing cell in the sweep
 registry.get_config = registry.get_smoke_config
 registry.supported_cells = lambda arch: ["train_4k", "no_such_shape"]
@@ -195,13 +215,57 @@ def test_conv_train_step_runs_sharded_by_channel(program):
     assert program[0]["mamba2 train"] == ["PASS", None]
 
 
-def test_opt_records_of_the_dense_family_are_marked(program):
-    """An --opt record of a family with ``seq_shard_residual`` says it is
-    not comparable to the baseline (module docstring of the dry run); a
-    baseline record says it is."""
-    out, _, cli = program
-    assert out["opt_comparable"] is False
-    assert cli["results"][0]["comparable_to_baseline"] is True
+# the head's input gathered (B / data, S, D) and its gradient
+# reduce-scattered back (a model-th of it), in bytes
+def _head_allowance(cfg, shape, data_n, model_n):
+    s = shape.seq_len - (cfg.n_patches if cfg.family == "vlm" else 0)
+    gathered = (shape.global_batch // data_n) * s * cfg.d_model * (
+        torch.finfo(getattr(torch, cfg.dtype)).bits // 8)
+    return gathered * (1 + 1 / model_n)
+
+
+OPT_CELLS = {"yi-6b 2x2": ("yi-6b", True, 2),
+             "llava-next-34b 2x2": ("llava-next-34b", True, 2),
+             "yi-6b 16x16": ("yi-6b", False, 16)}
+
+
+@pytest.mark.parametrize("cell", sorted(OPT_CELLS))
+def test_opt_flops_are_those_of_the_cell_without_the_sequence_shard(
+        program, cell):
+    """An --opt train cell (``seq_shard_residual``: the residual stream
+    sharded by sequence between layers) counts no more than 1.01 x the
+    local FLOPs of the same cell with the flag off: the dry run's rules
+    give it Megatron-SP's layout (the sequence gathered before the
+    column-parallel products, the head vocabulary-sharded, the attention
+    sharded by heads), where DTensor alone computed the head with the
+    whole vocabulary on every device."""
+    (f_opt, _), (f_off, _) = program[0]["opt_bar"][cell]
+    assert 0 < f_opt <= 1.01 * f_off, (cell, f_opt / f_off)
+
+
+@pytest.mark.parametrize("cell", sorted(OPT_CELLS))
+def test_opt_collectives_exceed_the_cell_without_the_sequence_shard_by_the_head_only(
+        program, cell):
+    """Its collective bytes exceed that cell's by at most the head input's
+    all-gather and its gradient's reduce-scatter."""
+    (_, c_opt), (_, c_off) = program[0]["opt_bar"][cell]
+    arch, smoke, n = OPT_CELLS[cell]
+    cfg = D.cell_config(arch, opt=True, cfg=(TR.get_smoke_config(arch)
+                                             if smoke else None))
+    shape = SHAPES["train_4k"]
+    if smoke:  # the program's cut
+        shape = dataclasses.replace(shape, seq_len=128, global_batch=4)
+    assert c_off > 0
+    assert c_opt <= c_off + _head_allowance(cfg, shape, n, n), (
+        cell, c_opt, c_off)
+
+
+def test_opt_records_have_the_reference_keys(program):
+    """An --opt record has the keys of a baseline record, the reference's,
+    and nothing that marks it apart."""
+    opt_keys, keys = program[0]["opt_keys"]
+    assert opt_keys == keys
+    assert "comparable_to_baseline" not in keys
 
 
 def test_dryrun_rules_on_values(program):

@@ -117,7 +117,7 @@ def test_init_params_and_cache_match_reference_tree():
 
 @pytest.mark.parametrize("pos", [5, 63, 64, 100])
 def test_ring_decode_attention_matches_reference(pos):
-    """``decode_attention_ring`` against the reference's ``ring=True``
+    """``decode_attention(..., ring=True)`` against the reference's own
     decode on the same ring cache, before the wrap, at its last slot and
     after it: y and the written cache within 1e-5."""
     rcfg, tcfg, rp, tp = _params()
@@ -130,8 +130,8 @@ def test_ring_decode_attention_matches_reference(pos):
                                     jnp.asarray(pos, jnp.int32), rcfg,
                                     window=0, use_rope=True, ring=True)
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
-    got = TL.decode_attention_ring(tp["shared_attn"], torch.from_numpy(x1),
-                                   tk, tv, pos, tcfg)
+    got, _, _ = TL.decode_attention(tp["shared_attn"], torch.from_numpy(x1),
+                                    tk, tv, pos, tcfg, ring=True)
     _close(got, y, 1e-5)
     _close(tk, kw, 1e-5)
     _close(tv, vw, 1e-5)
